@@ -7,16 +7,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions and
    both TF32 flags (TF32 must stay off: the port's f32 products are full
    f32);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version at the main-path
-   shapes (B=1 and B=64) and at edge cases; time kernel, plain version,
-   library call and the bound;
-4. the main path: Algorithm 1 (``FullRetrievalEngine`` on 400 queries,
-   ``HasEngine`` on 1500) at d=768, h_max=5000, doc_cap=50,000, 8192 IVF
-   buckets / nprobe 64, over 500,000 synthetic passages (100,000 entities);
-   every kernel's launch count on that run must be > 0;
-5. replay the first 300 HasEngine queries with ``backend="torch"`` on the
-   same index: accept bits equal, ids equal up to near-ties;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+   (one process per source, in parallel);
+3. hold each of the six kernels against its plain PyTorch version at the
+   main-path shapes (B=1 and B=64) and at edge cases; time kernel, plain
+   version, library call and the bound;
+4. Algorithm 1 (``FullRetrievalEngine`` on 400 queries, ``HasEngine`` on
+   1500) at d=768, h_max=5000, doc_cap=50,000, 8192 IVF buckets / nprobe
+   64, over 500,000 synthetic passages (100,000 entities); the launch
+   counts are set to 0 before it and read after: topk_search, ivf_scan and
+   homology_score must each be > 0; then a profiled window of 100 fresh
+   queries and a 300-query replay with ``backend="torch"`` on the same
+   index (accept bits equal, ids equal up to near-ties);
+5. the hybrid cloud stage on the same world: ``HybridBackend`` (dense
+   "ann": 1024 clusters, nprobe 32, int8 residual codes; lexical top-10
+   over 512-row tiles; RRF k=60, diversify 0.98) under
+   ``FullRetrievalEngine`` (400 queries) and ``HasEngine(fusion="rrf")``
+   (1500), query terms forwarded; the counts are set to 0 before it and all
+   six kernels must be > 0 after; then a profiled window and a 300-query
+   replay with ``backend="torch"`` for speculation and cloud stage (accept
+   bits equal, ids equal up to near-ties proven by recomputation);
 6. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -24,6 +34,7 @@ Details of every phase are written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
@@ -45,6 +56,11 @@ HAS_QUERIES = 1500             # through HasEngine
 FULL_QUERIES = 400             # through FullRetrievalEngine
 REPLAY_QUERIES = 300           # replayed with backend="torch"
 PROFILE_STEPS = 100            # fresh queries of the profiled window
+HYBRID = dict(dense="ann", dense_k=K, lexical_k=K, rrf_k=60.0,
+              diversify_sim=0.98, tile_n=512,
+              ann_kwargs=dict(n_clusters=1024, nprobe=32, compressed=True))
+ANN_CAP = 977                  # ceil(500,000 / 1024 * 2)
+POOL = 2 * K                   # fused pool: dense_k + lexical_k slots
 
 
 def log(*a):
@@ -306,16 +322,258 @@ def check_kernels(dev, timer) -> dict:
     return res
 
 
+def check_hybrid_kernels(dev, timer) -> dict:
+    """Phase 3 for the hybrid cloud stage's kernels: int8 ivf_scan,
+    lexical_score and fused_rerank."""
+    from repro_torch.kernels.fused_rerank import (final_topk, fused_rerank,
+                                                  fused_rerank_plain,
+                                                  fused_scores,
+                                                  fused_scores_plain)
+    from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+    from repro_torch.kernels.lexical_score import (lexical_score,
+                                                   lexical_score_plain)
+    from repro_torch.retrieval.lexical import build_doc_terms, query_terms
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+    d, h = 768, 384
+    res = {}
+
+    def unit(*shape):
+        x = torch.randn(*shape, d, device=dev, generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    # -- ivf_scan, int8 residual codes: the cloud stage's dense channel -----
+    rec = res["ivf_scan_int8"] = {"cases": {}, "max_abs_err": 0.0,
+                                  "swaps": 0}
+    n_b, cap, p_ = 1024, ANN_CAP, 32
+    codes = torch.randint(-127, 128, (n_b, cap, d), dtype=torch.int8,
+                          device=dev, generator=g)
+    scales = torch.rand(n_b, cap, 2, device=dev, generator=g) * 1e-3 + 1e-4
+    bids = torch.randperm(n_b * cap, device=dev, generator=g) \
+        .int().reshape(n_b, cap)
+    bids[torch.rand(n_b, cap, device=dev, generator=g) < 0.5] = -1
+    bids[3] = -1                                   # an all-pad bucket
+    codes[4] = 0                                   # all-zero residuals:
+    scales[4] = 1e-12                              # the scale floor
+
+    def probes(b, p):
+        return torch.stack([torch.randperm(n_b, device=dev, generator=g)[:p]
+                            for _ in range(b)]).int()
+
+    def i8_case(name, q, probe, cd, sc, ids, bias):
+        kv, ki = ivf_scan(q, probe, cd, ids, K, sc, bias)
+        pv, pi = ivf_scan_plain(q, probe, cd, ids, K, sc, bias)
+
+        def score_of(r, gid):               # global ids are unique here
+            slot = int((ids.view(-1) == gid).nonzero()[0, 0])
+            c, s_ = divmod(slot, ids.shape[1])
+            at = (probe[r] == c).nonzero()
+            if not len(at):
+                return -float("inf")        # not in a probed bucket
+            v = cd[c, s_].float()
+            return float((q[r, :h] @ v[:h]) * sc[c, s_, 0]
+                         + (q[r, h:] @ v[h:]) * sc[c, s_, 1]
+                         + bias[r, int(at[0, 0])])
+
+        err, sw = compare_topk(f"ivf_scan_int8/{name}", kv, ki, pv, pi,
+                               score_of)
+        rec["cases"][name] = {"max_abs_err": err, "swaps": sw}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["swaps"] += sw
+
+    q1, q64 = unit(1), unit(64)
+    pr1, pr64 = probes(1, p_), probes(64, p_)
+    b1, b64 = (torch.randn(b, p_, device=dev, generator=g) * 0.3
+               for b in (1, 64))
+    i8_case("B=1,P=32", q1, pr1, codes, scales, bids, b1)
+    i8_case("B=64,P=32", q64, pr64, codes, scales, bids, b64)
+    pr_edge = pr64[:4].clone()
+    pr_edge[:, 0], pr_edge[:, 1] = 3, 4            # all-pad, zero residual
+    i8_case("all-pad bucket + zero residual", q64[:4], pr_edge, codes,
+            scales, bids, b64[:4].contiguous())
+    i8_case("pool < k (P=1, cap 4)", unit(3), probes(3, 1),
+            codes[:, :4].contiguous(), scales[:, :4].contiguous(),
+            bids[:, :4].contiguous(), b64[:3, :1].contiguous())
+    for b, q, pr, bias in ((1, q1, pr1, b1), (64, q64, pr64, b64)):
+        uniq = int(torch.unique(pr).numel())
+        n_bytes = q.numel() * 4 + pr.numel() * 8 + uniq * cap * (d + 12) \
+            + b * K * 8
+        bms, by = bound(n_bytes, 2 * b * p_ * cap * d)
+
+        def library(q=q, pr=pr):
+            s_ = torch.bmm(codes[pr.long()].float().reshape(q.shape[0], -1,
+                                                            d),
+                           q[:, :, None])[..., 0]
+            return torch.topk(s_, K)
+
+        rec[f"B={b}"] = {
+            "ms": timer(lambda: ivf_scan(q, pr, codes, bids, K, scales,
+                                         bias)),
+            "plain_ms": timer(lambda: ivf_scan_plain(q, pr, codes, bids, K,
+                                                     scales, bias), reps=10),
+            "library_ms": timer(library, reps=10),
+            "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": own_kernel_us(device_times(
+                lambda: ivf_scan(q, pr, codes, bids, K, scales, bias), 20),
+                ("ivf_bucket_int8_kernel", "topk_merge_kernel"))}
+    del codes, scales, bids
+    torch.cuda.empty_cache()
+
+    # -- lexical_score: the cloud stage's lexical channel -------------------
+    rec = res["lexical_score"] = {"cases": {}, "max_abs_err": 0.0}
+    n_ent = 100_000                               # 500,000 postings rows
+    doc_entity = np.repeat(np.arange(n_ent), 5)
+    attr_mask = np.zeros((5 * n_ent, 12), bool)
+    for j in range(4):
+        attr_mask[np.arange(5 * n_ent), rng.integers(0, 12, 5 * n_ent)] = True
+    dt_np, dw_np = build_doc_terms(doc_entity, attr_mask, width=5)
+    dt = torch.as_tensor(dt_np, device=dev)
+    dw = torch.as_tensor(dw_np, device=dev)
+
+    def lex_queries(b):
+        qs = [query_terms(int(e), int(a)) for e, a in
+              zip(rng.integers(0, n_ent, b), rng.integers(0, 12, b))]
+        return (torch.as_tensor(np.stack([t for t, _ in qs]), device=dev),
+                torch.as_tensor(np.stack([w for _, w in qs]), device=dev))
+
+    def lex_case(name, qt, qw, dt_, dw_, tile_n=512):
+        kv, ki = lexical_score(qt, qw, dt_, dw_, K, tile_n)
+        pv, pi = lexical_score_plain(qt, qw, dt_, dw_, K, tile_n)
+        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            raise AssertionError(f"lexical_score/{name}: kernel and plain "
+                                 f"differ (must be bit-equal)")
+        rec["cases"][name] = {"max_abs_err": 0.0,
+                              "finite": int(torch.isfinite(kv).sum())}
+
+    (qt1, qw1), (qt64, qw64) = lex_queries(1), lex_queries(64)
+    lex_case("B=1,N=500000", qt1, qw1, dt, dw)
+    lex_case("B=64,N=500000", qt64, qw64, dt, dw)
+    # > k tied matches over many tiles, plus a tail tile of 163 rows
+    n_t = 100_003
+    dt_tie = torch.randint(0, 6, (n_t, 5), device=dev, generator=g,
+                           dtype=torch.int32)
+    dt_tie[torch.rand(n_t, 5, device=dev, generator=g) < 0.2] = -1
+    dw_tie = torch.where(dt_tie >= 0, 0.7, 0.0).float()
+    dw_tie[::3] = torch.where(dt_tie[::3] >= 0, 1.0, 0.0)
+    qt_tie = torch.randint(0, 6, (8, 2), device=dev, generator=g,
+                           dtype=torch.int32)
+    qw_tie = torch.full((8, 2), 0.7, device=dev)
+    qt_tie[0, 1], qw_tie[1, 0], qt_tie[2] = -1, 0.0, -1  # -1 terms, 0 weight
+    lex_case("ties over 196 tiles + tail tile", qt_tie, qw_tie, dt_tie,
+             dw_tie)
+    lex_case("ties, tile 256", qt_tie, qw_tie, dt_tie, dw_tie, 256)
+    for b, qt, qw in ((1, qt1, qw1), (64, qt64, qw64)):
+        n_bytes = dt.numel() * 8 + qt.numel() * 8 + b * K * 8
+        bms, by = bound(n_bytes, 2 * b * dt.numel() * qt.shape[1])
+        rec[f"B={b}"] = {
+            "ms": timer(lambda: lexical_score(qt, qw, dt, dw, K)),
+            "plain_ms": timer(lambda: lexical_score_plain(qt, qw, dt, dw, K),
+                              reps=10),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": own_kernel_us(device_times(
+                lambda: lexical_score(qt, qw, dt, dw, K), 20),
+                ("lexical_tile_kernel", "lexical_merge_kernel"))}
+    del dt, dw, dt_tie, dw_tie
+
+    # -- fused_rerank: RRF + diversification + rerank of the pool -----------
+    rec = res["fused_rerank"] = {"cases": {}, "max_abs_err": 0.0,
+                                 "swaps": 0, "near_threshold_rows": 0}
+
+    def pools(b):
+        ids = torch.stack([torch.randperm(3000, device=dev, generator=g)
+                           [:POOL] for _ in range(b)]).int()
+        ids[:, K:K + 3] = ids[:, 2:5]              # cross-channel duplicates
+        ids[:, -2:] = -1                           # lexical found fewer
+        vecs = unit(b, POOL)
+        vecs[:, 7] = vecs[:, 6] + 0.02 * unit(b)   # near-duplicates
+        vecs[:, 7] /= vecs[:, 7].norm(dim=-1, keepdim=True)
+        vecs[ids < 0] = 0.0
+        return unit(b), ids, vecs
+
+    def fused_case(name, q, ids, vecs, dsim):
+        km, kr = fused_scores(q, ids, vecs, K, 60.0, dsim)
+        pm, pr = fused_scores_plain(q, ids, vecs, K, 60.0, dsim)
+        err = float_err(kr, pr, f"fused_rerank/{name} rscore")
+        if err > SCORE_TOL:
+            raise AssertionError(f"fused_rerank/{name}: rscore error {err}")
+        exempt = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
+        if dsim is not None:                        # cosines near threshold
+            v64 = vecs.double()
+            vn = v64 / v64.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            cos = vn @ vn.transpose(1, 2)
+            exempt = ((cos - dsim).abs() <= 1e-5).flatten(1).any(dim=1)
+        same = (km == pm) | (torch.isneginf(km) & torch.isneginf(pm))
+        if not (same.all(dim=1) | exempt).all():
+            raise AssertionError(f"fused_rerank/{name}: masses differ")
+        kv, ki = final_topk(km, kr, ids, K)
+        pv, pi = final_topk(pm, pr, ids, K)
+        swaps = 0
+        for row, j in (ki != pi).nonzero().tolist():
+            if exempt[row]:
+                continue
+            a = (ids[row] == ki[row, j]).nonzero()[0, 0]
+            b = (ids[row] == pi[row, j]).nonzero()[0, 0]
+            if kv[row, j] != pv[row, j] or \
+                    abs(float(pr[row, a] - pr[row, b])) > SCORE_TOL:
+                raise AssertionError(f"fused_rerank/{name}: id swap at "
+                                     f"[{row},{j}] is not a near-tie")
+            swaps += 1
+        rec["cases"][name] = {"max_abs_err": err, "swaps": swaps,
+                              "near_threshold_rows": int(exempt.sum())}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["swaps"] += swaps
+        rec["near_threshold_rows"] += int(exempt.sum())
+
+    f1, f64 = pools(1), pools(64)
+    for dsim in (None, 0.98):
+        fused_case(f"B=1,dsim={dsim}", *f1, dsim)
+        fused_case(f"B=64,dsim={dsim}", *f64, dsim)
+    fq, fi, fv = pools(8)
+    fi[0] = -1                                     # nothing retrieved
+    fv[0] = 0.0
+    fused_case("empty pool, dsim=0.98", fq, fi, fv, 0.98)
+    for b, (q, ids, vecs) in ((1, f1), (64, f64)):
+        n_bytes = q.numel() * 4 + ids.numel() * 4 + vecs.numel() * 4 \
+            + b * K * 8
+        ops = b * (5 * POOL * d + 2 * POOL * POOL * d)
+        bms, by = bound(n_bytes, ops)
+        rec[f"B={b}"] = {
+            "ms": timer(lambda: fused_rerank(q, ids, vecs, K, K, 60.0,
+                                             0.98)),
+            "plain_ms": timer(lambda: fused_rerank_plain(q, ids, vecs, K, K,
+                                                         60.0, 0.98)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": own_kernel_us(device_times(
+                lambda: fused_rerank(q, ids, vecs, K, K, 60.0, 0.98), 20),
+                ("fused_kernel",))}
+    return res
+
+
 # ---------------------------------------------------------------------------
-# Phases 4-5: the main path and its plain replay
+# Phases 4-5: the two main paths and their plain replays
 # ---------------------------------------------------------------------------
+
+class Counters:
+    """The launch counts of the six kernels, by kernel name."""
+
+    def __init__(self, table):
+        self.table = table            # name -> (wrapper, count attribute)
+
+    def reset(self):
+        for fn, attr in self.table.values():
+            setattr(fn, attr, 0)
+
+    def read(self) -> dict[str, int]:
+        return {n: getattr(fn, attr) for n, (fn, attr) in self.table.items()}
+
 
 def recording(engine):
     """Keep every (ids, accept, latency, homology) that ``step`` returns."""
     out, step = [], engine.step
 
-    def rec(q_emb):
-        r = step(q_emb)
+    def rec(*a, **kw):
+        r = step(*a, **kw)
         out.append(r)
         return r
 
@@ -323,31 +581,78 @@ def recording(engine):
     return out
 
 
-def main_path(dev, kernel_fns) -> dict:
+def snapshot(state):
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)})
+
+
+def profile_window(step, window, restore=None) -> dict:
+    """A window of fresh queries, run once on the host clock, then again
+    under the profiler (``restore()`` first puts the engine's cache back)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accepted = sum(bool(step(q)[1]) for q in window)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / len(window)
+    if restore is not None:
+        restore()
+    times = device_times(lambda: [step(q) for q in window], 1, warm=False)
+    busy = sum(times.values()) / len(window)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": len(window), "accepted": int(accepted),
+            "wall_us_per_step": wall_us, "device_busy_us_per_step": busy,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "top_kernels_us_per_step": {k[:90]: v / len(window)
+                                        for k, v in top}}
+
+
+def profile_has(has, window, with_terms: bool) -> dict:
+    """The HaS engine's window, from one cache snapshot both times."""
+    snap = snapshot(has.state)
+
+    def restore():
+        has.state = snap
+
+    if with_terms:
+        return profile_window(
+            lambda q: has.step(q["emb"], q["terms"], q["term_weights"]),
+            window, restore)
+    return profile_window(lambda q: has.step(q["emb"]), window, restore)
+
+
+def check_steps(what, steps, summary):
+    for ids, _, lat, hom in steps:
+        if ids.shape != (K,) or not np.isfinite(lat) or not 0 <= hom <= 1:
+            raise AssertionError(f"{what}: malformed step output")
+    if not (0 < summary["dar"] < 1 and 0 < summary["doc_hit_rate"] <= 1):
+        raise AssertionError(f"{what}: implausible metrics {summary}")
+
+
+def dense_near_tie(service, q_emb, a_ids, b_ids) -> bool:
+    """Every position where two served lists differ holds real,
+    unrepeated ids whose f32 corpus scores lie within SCORE_TOL."""
+    diff = np.flatnonzero(a_ids != b_ids)
+    if (a_ids[diff] < 0).any() or (b_ids[diff] < 0).any():
+        return False
+    if len(set(a_ids[a_ids >= 0].tolist())) != int((a_ids >= 0).sum()):
+        return False
+    dev = service.corpus.device
+    q = torch.as_tensor(q_emb, device=dev)
+    sa = service.corpus[torch.as_tensor(a_ids[diff]).long().to(dev)] @ q
+    sb = service.corpus[torch.as_tensor(b_ids[diff]).long().to(dev)] @ q
+    return float((sa - sb).abs().max()) <= SCORE_TOL
+
+
+def algorithm1_path(dev, world, queries, counters) -> dict:
     from repro_torch.core.has import HasConfig
-    from repro_torch.data.synthetic import DATASETS, SyntheticWorld, \
-        WorldConfig
     from repro_torch.retrieval.ivf import build_ivf
     from repro_torch.retrieval.service import RetrievalService
     from repro_torch.serving.engine import FullRetrievalEngine, HasEngine
     from repro_torch.serving.latency import LatencyModel
 
     info = {}
-    t0 = time.perf_counter()
-    world = SyntheticWorld(WorldConfig(n_entities=ENTITIES, d=768))
-    info["world_build_s"] = time.perf_counter() - t0
-    info["n_docs"] = world.cfg.n_docs
-    ds = DATASETS["granola"]
-    queries = world.sample_queries(HAS_QUERIES, pattern=ds["pattern"],
-                                   zipf_a=ds["zipf_a"],
-                                   p_uncovered=ds["p_uncovered"], seed=1)
-    log(f"world: {world.cfg.n_docs} passages, d=768, built in "
-        f"{info['world_build_s']:.1f} s")
-
     service = RetrievalService(world, LatencyModel(), k=K)
-    full = FullRetrievalEngine(service).serve(queries[:FULL_QUERIES])
-    info["full"] = full.summary()
-
     cfg = HasConfig(k=K, tau=0.2, h_max=5000, doc_capacity=50_000,
                     nprobe=64, n_buckets=8192, d=768)
     t0 = time.perf_counter()
@@ -355,52 +660,26 @@ def main_path(dev, kernel_fns) -> dict:
     torch.cuda.synchronize()
     info["ivf_build_s"] = time.perf_counter() - t0
     info["ivf_capacity"] = index.capacity
+
+    counters.reset()
+    full = FullRetrievalEngine(service).serve(queries[:FULL_QUERIES])
     has = HasEngine(service, cfg, index=index)
     steps = recording(has)
-    for fn in kernel_fns:
-        fn.launches = 0
     t0 = time.perf_counter()
     res = has.serve(queries)
     info["has_serve_s"] = time.perf_counter() - t0
-    info["launches"] = {fn.__name__: fn.launches for fn in kernel_fns}
-    info["has"] = res.summary()
-    for name, n in info["launches"].items():
-        if n <= 0:
+    info["launches"] = counters.read()
+    info["full"], info["has"] = full.summary(), res.summary()
+    for name in ("topk_search", "ivf_scan", "homology_score"):
+        if info["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    for ids, _, lat, hom in steps:
-        if ids.shape != (K,) or not np.isfinite(lat) or not 0 <= hom <= 1:
-            raise AssertionError("main path: malformed step output")
-    s = info["has"]
-    if not (0 < s["dar"] < 1 and 0 < s["doc_hit_rate"] <= 1):
-        raise AssertionError(f"main path: implausible metrics {s}")
+    check_steps("main path", steps, info["has"])
 
-    # where the time goes: a fresh window of queries on the warm engine,
-    # run once on the host clock, then again from the same cache snapshot
-    # under the profiler (device time per kernel)
-    window = world.sample_queries(PROFILE_STEPS, pattern=ds["pattern"],
-                                  zipf_a=ds["zipf_a"],
-                                  p_uncovered=ds["p_uncovered"], seed=2)
-    snap = dataclasses.replace(has.state, **{
-        f.name: getattr(has.state, f.name).clone()
-        for f in dataclasses.fields(has.state)})
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    accepted = sum(has.step(q["emb"])[1] for q in window)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / len(window)
-    has.state = snap
-    times = device_times(lambda: [has.step(q["emb"]) for q in window], 1,
-                         warm=False)
-    busy = sum(times.values()) / len(window)
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
-    info["profile"] = {
-        "steps": len(window), "accepted": int(accepted),
-        "wall_us_per_step": wall_us, "device_busy_us_per_step": busy,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "top_kernels_us_per_step": {k[:90]: v / len(window) for k, v in top}}
+    window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
+    info["profile"] = profile_has(has, window, with_terms=False)
     del steps[HAS_QUERIES:]             # drop the profiled window's steps
 
-    # phase 5: the same queries through the plain backend, same index
+    # the same queries through the plain backend, same index
     replay = HasEngine(service, cfg, backend="torch", index=index)
     plain_steps = recording(replay)
     replay.serve(queries[:REPLAY_QUERIES])
@@ -408,20 +687,145 @@ def main_path(dev, kernel_fns) -> dict:
     for i, (a, b) in enumerate(zip(steps, plain_steps)):
         if a[1] != b[1]:
             raise AssertionError(f"replay: accept differs at query {i}")
-        diff = np.flatnonzero(a[0] != b[0])
-        if len(diff):
-            q = torch.as_tensor(queries[i]["emb"], device=dev)
-            sa = service.corpus[torch.as_tensor(a[0][diff]).long().to(dev)] @ q
-            sb = service.corpus[torch.as_tensor(b[0][diff]).long().to(dev)] @ q
-            if (a[0][diff] < 0).any() or (b[0][diff] < 0).any() or \
-                    float((sa - sb).abs().max()) > SCORE_TOL:
+        if (a[0] != b[0]).any():
+            if not dense_near_tie(service, queries[i]["emb"], a[0], b[0]):
                 raise AssertionError(f"replay: ids differ at query {i}")
-            swaps += len(diff)
+            swaps += int((a[0] != b[0]).sum())
+    info["replay"] = {"queries": len(plain_steps), "accept_equal": True,
+                      "near_tie_swaps": swaps,
+                      "dar_plain": float(np.mean([s[1] for s in
+                                                  plain_steps]))}
+    return info, index
+
+
+def int8_score_of(index, q, probe, cvals):
+    """score_of(row, id) of the int8 dense channel, recomputed from the
+    index (-inf if the id is in no probed bucket)."""
+    h = q.shape[1] // 2
+    flat_ids = index.bucket_ids.view(-1)
+
+    def score_of(r, gid):
+        slot = int((flat_ids == gid).nonzero()[0, 0])
+        c, s_ = divmod(slot, index.capacity)
+        at = (probe[r] == c).nonzero()
+        if not len(at):
+            return -float("inf")
+        v = index.bucket_vecs[c, s_].float()
+        sc = index.bucket_scales[c, s_]
+        return float((q[r, :h] @ v[:h]) * sc[0] + (q[r, h:] @ v[h:]) * sc[1]
+                     + cvals[r, int(at[0, 0])])
+
+    return score_of
+
+
+def prove_cloud_near_tie(hybrid, q_rec) -> int:
+    """A rejected step served different ids on the two backends: prove that
+    the cloud stage's dense channel differs only by near-tied candidates
+    (scores recomputed from the int8 index) and that, given the same dense
+    list, the kernels reproduce the plain lexical + fusion result."""
+    from repro_torch.retrieval.fusion import _fuse_tail, ivf_ann_body
+    from repro_torch.utils import stable_topk
+
+    dev = hybrid.corpus.device
+    ivf = hybrid._ivf
+    q = torch.as_tensor(q_rec["emb"], device=dev)[None].float()
+    qt = torch.as_tensor(q_rec["terms"], device=dev)[None].int()
+    qw = torch.as_tensor(q_rec["term_weights"], device=dev)[None].float()
+    dense = {}
+    for be in (None, "torch"):
+        dense[be] = ivf_ann_body(ivf.index, ivf._res_vecs, ivf._res_ids, q,
+                                 nprobe=ivf.nprobe, k=hybrid.dense_k,
+                                 backend=be)
+    cvals, probe = stable_topk(q @ ivf.index.centroids.T, ivf.nprobe)
+    _, swaps = compare_topk("replay dense channel", *dense[None],
+                            *dense["torch"],
+                            int8_score_of(ivf.index, q, probe, cvals))
+    tails = [_fuse_tail(hybrid.corpus, q, dense["torch"][1], qt, qw,
+                        hybrid._terms, hybrid._tw, k=hybrid.k,
+                        kl=hybrid.lexical_k, rrf_k=hybrid.rrf_k,
+                        diversify_sim=hybrid.diversify_sim, backend=be,
+                        tile_n=hybrid.tile_n)[1] for be in (None, "torch")]
+    if not torch.equal(*tails):
+        raise AssertionError("replay: lexical + fusion differ on the same "
+                             "dense list")
+    return swaps
+
+
+def hybrid_path(dev, world, queries, index, counters) -> dict:
+    from repro_torch.core.has import HasConfig
+    from repro_torch.retrieval.service import HybridBackend, RetrievalService
+    from repro_torch.serving.engine import FullRetrievalEngine, HasEngine
+    from repro_torch.serving.latency import LatencyModel
+
+    info = {}
+    t0 = time.perf_counter()
+    hybrid = HybridBackend(world.doc_emb, K, LatencyModel(), world.doc_terms,
+                           world.doc_term_weights, **HYBRID)
+    torch.cuda.synchronize()
+    info["backend_build_s"] = time.perf_counter() - t0
+    info["ann_capacity"] = hybrid._ivf.index.capacity
+    info["lexical_terms"] = hybrid.lexical_terms
+    service = RetrievalService(world, LatencyModel(), k=K, backend=hybrid)
+    cfg = HasConfig(k=K, tau=0.2, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768, fusion="rrf")
+
+    counters.reset()
+    full = FullRetrievalEngine(service).serve(queries[:FULL_QUERIES])
+    has = HasEngine(service, cfg, index=index)
+    steps = recording(has)
+    t0 = time.perf_counter()
+    res = has.serve(queries)
+    info["has_serve_s"] = time.perf_counter() - t0
+    info["launches"] = counters.read()
+    info["full"], info["has"] = full.summary(), res.summary()
+    for name, n in info["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the hybrid "
+                                 f"path")
+    check_steps("hybrid path", steps, info["has"])
+
+    window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
+    info["profile"] = profile_has(has, window, with_terms=True)
+    del steps[HAS_QUERIES:]
+    # the cloud stage alone: one full_search per fresh query
+    info["profile_cloud"] = profile_window(
+        lambda q: (service.full_search(q["emb"], q["terms"],
+                                       q["term_weights"]), False), window)
+
+    # the same queries with backend="torch" for speculation and cloud stage
+    plain = copy.copy(hybrid)
+    plain.backend = "torch"
+    plain_service = RetrievalService(world, LatencyModel(), k=K,
+                                     backend=plain)
+    replay = HasEngine(plain_service, cfg, backend="torch", index=index)
+    plain_steps = recording(replay)
+    replay.serve(queries[:REPLAY_QUERIES])
+    swaps = {"draft": 0, "cloud_dense": 0}
+    for i, (a, b) in enumerate(zip(steps, plain_steps)):
+        if a[1] != b[1]:
+            raise AssertionError(f"hybrid replay: accept differs at query "
+                                 f"{i}")
+        if not (a[0] != b[0]).any():
+            continue
+        if a[1]:                        # an accepted draft: speculation
+            if not dense_near_tie(service, queries[i]["emb"], a[0], b[0]):
+                raise AssertionError(f"hybrid replay: draft ids differ at "
+                                     f"query {i}")
+            swaps["draft"] += int((a[0] != b[0]).sum())
+        else:                           # a reject: the cloud stage
+            swaps["cloud_dense"] += prove_cloud_near_tie(hybrid, queries[i])
     info["replay"] = {"queries": len(plain_steps), "accept_equal": True,
                       "near_tie_swaps": swaps,
                       "dar_plain": float(np.mean([s[1] for s in
                                                   plain_steps]))}
     return info
+
+
+def stream_kw() -> dict:
+    from repro_torch.data.synthetic import DATASETS
+    ds = DATASETS["granola"]
+    return dict(pattern=ds["pattern"], zipf_a=ds["zipf_a"],
+                p_uncovered=ds["p_uncovered"])
 
 
 def main() -> int:
@@ -430,11 +834,21 @@ def main() -> int:
               "NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
     from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_rerank import fused_scores
     from repro_torch.kernels.homology_score import homology_score
     from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.kernels.lexical_score import lexical_score
     from repro_torch.kernels.topk_search import topk_search
 
+    counters = Counters({
+        "topk_search": (topk_search, "launches"),
+        "ivf_scan": (ivf_scan, "launches"),
+        "homology_score": (homology_score, "launches"),
+        "ivf_scan_int8": (ivf_scan, "launches_int8"),
+        "lexical_score": (lexical_score, "launches"),
+        "fused_rerank": (fused_scores, "launches")})
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     # phase 1: the card
@@ -463,11 +877,16 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     timer = Timer(dev)
+    t0 = time.perf_counter()
     kres = check_kernels(dev, timer)
+    torch.cuda.empty_cache()
+    kres.update(check_hybrid_kernels(dev, timer))
+    torch.cuda.empty_cache()
+    phase3_s = time.perf_counter() - t0
     log(f"tolerance vs plain: scores within {SCORE_TOL} (f32 sums in "
         f"another order), ids equal except swaps of candidates whose "
-        f"scores lie within it; unweighted homology bit-equal, weighted "
-        f"within 1e-6")
+        f"scores lie within it; unweighted homology, lexical scores and "
+        f"ids, and fused masses bit-equal; weighted homology within 1e-6")
     for name, r in kres.items():
         for b in (1, 64):
             t = r[f"B={b}"]
@@ -475,45 +894,66 @@ def main() -> int:
                 else f"{t['library_ms']:.4f}"
             log(f"{name} B={b}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
-                f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernels alone "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}); kernels alone "
                 f"{t['kernel_device_us']:.1f} us (profiler); max_abs_err "
                 f"{r['max_abs_err']:.3g}, near-tie swaps "
                 f"{r.get('swaps', 0)}")
-    torch.cuda.empty_cache()
 
     # phases 4-5
-    info = main_path(dev, (topk_search, ivf_scan, homology_score))
-    f, s = info["full"], info["has"]
-    log(f"full: AvgL {f['avg_latency_s']:.4f} s, DocHit "
-        f"{f['doc_hit_rate']:.4f}, RA {f['ra_qwen3-8b']:.4f}")
-    log(f"HaS: AvgL {s['avg_latency_s']:.4f} s, DAR {s['dar']:.4f}, CAR "
-        f"{s['car']:.4f}, DocHit {s['doc_hit_rate']:.4f}, RA "
-        f"{s['ra_qwen3-8b']:.4f}; {HAS_QUERIES} queries in "
-        f"{info['has_serve_s']:.1f} s")
-    log(f"launches on the main path: {info['launches']}")
-    pr = info["profile"]
-    log(f"window of {pr['steps']} fresh queries ({pr['accepted']} "
-        f"accepted): {pr['wall_us_per_step']:.1f} us/step wall, device busy "
-        f"{pr['device_busy_us_per_step']:.1f} us/step (profiler), idle "
-        f"share {pr['device_idle_share']:.3f}; top kernels us/step: "
-        f"{json.dumps(pr['top_kernels_us_per_step'])}")
-    log(f"replay ({info['replay']['queries']} queries, backend=torch): "
-        f"accept bits equal, near-tie id swaps "
-        f"{info['replay']['near_tie_swaps']}")
+    t0 = time.perf_counter()
+    world = SyntheticWorld(WorldConfig(n_entities=ENTITIES, d=768))
+    world_s = time.perf_counter() - t0
+    queries = world.sample_queries(HAS_QUERIES, **stream_kw(), seed=1)
+    log(f"world: {world.cfg.n_docs} passages, d=768, built in "
+        f"{world_s:.1f} s")
+    info, index = algorithm1_path(dev, world, queries, counters)
+    hyb = hybrid_path(dev, world, queries, index, counters)
+    for title, r in (("Algorithm 1", info), ("hybrid cloud stage", hyb)):
+        f, s = r["full"], r["has"]
+        log(f"[{title}] full: AvgL {f['avg_latency_s']:.4f} s, DocHit "
+            f"{f['doc_hit_rate']:.4f}, RA {f['ra_qwen3-8b']:.4f}")
+        log(f"[{title}] HaS: AvgL {s['avg_latency_s']:.4f} s, DAR "
+            f"{s['dar']:.4f}, CAR {s['car']:.4f}, DocHit "
+            f"{s['doc_hit_rate']:.4f}, RA {s['ra_qwen3-8b']:.4f}; "
+            f"{HAS_QUERIES} queries in {r['has_serve_s']:.1f} s")
+        log(f"[{title}] launches: {r['launches']}")
+        pr = r["profile"]
+        log(f"[{title}] window of {pr['steps']} fresh queries "
+            f"({pr['accepted']} accepted): {pr['wall_us_per_step']:.1f} "
+            f"us/step wall, device busy {pr['device_busy_us_per_step']:.1f} "
+            f"us/step (profiler), idle share {pr['device_idle_share']:.3f}; "
+            f"top kernels us/step: "
+            f"{json.dumps(pr['top_kernels_us_per_step'])}")
+        if "profile_cloud" in r:
+            pc = r["profile_cloud"]
+            log(f"[{title}] cloud stage alone, {pc['steps']} queries: "
+                f"{pc['wall_us_per_step']:.1f} us/query wall, device busy "
+                f"{pc['device_busy_us_per_step']:.1f} us/query, idle share "
+                f"{pc['device_idle_share']:.3f}; top kernels us/query: "
+                f"{json.dumps(pc['top_kernels_us_per_step'])}")
+        log(f"[{title}] replay ({r['replay']['queries']} queries, "
+            f"backend=torch): accept bits equal, near-tie id swaps "
+            f"{r['replay']['near_tie_swaps']}")
 
-    sources = {"topk_search": ("src/repro_torch/kernels/csrc/topk_search.cu",
-                               "src/repro/kernels/topk_search.py:25"),
-               "ivf_scan": ("src/repro_torch/kernels/csrc/ivf_scan.cu",
-                            "src/repro/kernels/ivf_scan.py:19"),
-               "homology_score": (
-                   "src/repro_torch/kernels/csrc/homology_score.cu",
-                   "src/repro/kernels/homology_score.py:17")}
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {
+        "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
+                        info),
+        "ivf_scan": ("ivf_scan.cu", "src/repro/kernels/ivf_scan.py:19", info),
+        "homology_score": ("homology_score.cu",
+                           "src/repro/kernels/homology_score.py:17", info),
+        "ivf_scan_int8": ("ivf_scan.cu", "src/repro/kernels/ivf_scan.py:72",
+                          hyb),
+        "lexical_score": ("lexical_score.cu",
+                          "src/repro/kernels/lexical_score.py:107", hyb),
+        "fused_rerank": ("fused_rerank.cu",
+                         "src/repro/kernels/fused_rerank.py:84", hyb)}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in sources.items():
         t = kres[name]["B=1"]
-        kernels.append({"name": name, "route": "cuda", "source": src,
+        kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces,
-                        "launches": info["launches"][name],
+                        "launches": path["launches"][name],
                         "max_abs_err": kres[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -523,8 +963,10 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "tf32": tf32, "build_s": build_s, "build_log": _build.build_log,
-         "kernels": kres, "main_path": info,
+         "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
+         "main_path": info, "hybrid_path": hyb,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,13 +27,16 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-KERNELS = ("topk_search", "ivf_scan", "homology_score")
+KERNELS = ("topk_search", "ivf_scan", "homology_score", "lexical_score",
+           "fused_rerank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream are c_void_p, sizes c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream are c_void_p, sizes c_int,
+# scalars c_float
 SIGNATURES = {
     "topk_search": {
         "has_topk_search": [_P] * 7 + [_I] * 5 + [_P],
@@ -41,11 +44,19 @@ SIGNATURES = {
         "has_topk_rows_per_block": [],
     },
     "ivf_scan": {
-        "has_ivf_scan": [_P] * 7 + [_I] * 6 + [_P],
+        "has_ivf_scan": [_P] * 7 + [_I] * 7 + [_P],
+        "has_ivf_scan_int8": [_P] * 9 + [_I] * 7 + [_P],
         "has_ivf_merge": [_P] * 3 + [_I] * 3 + [_P] * 4,
     },
     "homology_score": {
         "has_homology_score": [_P] * 7 + [_I] * 3 + [_P],
+    },
+    "lexical_score": {
+        "has_lexical_tiles": [_P] * 7 + [_I] * 6 + [_P],
+        "has_lexical_merge": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "fused_rerank": {
+        "has_fused_rerank": [_P] * 5 + [_I] * 4 + [_F, _I, _F, _P],
     },
 }
 

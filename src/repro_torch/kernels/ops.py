@@ -11,9 +11,12 @@ The port's twin of the reference's ``backend="pallas" | "xla"``:
 """
 from __future__ import annotations
 
+from repro_torch.kernels.fused_rerank import fused_rerank, fused_rerank_plain
 from repro_torch.kernels.homology_score import (homology_score,
                                                 homology_score_plain)
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+from repro_torch.kernels.lexical_score import (lexical_score,
+                                               lexical_score_plain)
 from repro_torch.kernels.topk_search import topk_search, topk_search_plain
 
 BACKENDS = ("cuda", "torch")
@@ -34,9 +37,11 @@ def topk_search_op(queries, corpus, k, valid=None, row_group=None,
 
 
 def ivf_scan_op(queries, probe, bucket_vecs, bucket_ids, k,
+                bucket_scales=None, probe_bias=None,
                 backend: str | None = None):
     fn = ivf_scan_plain if check_backend(backend) == "torch" else ivf_scan
-    return fn(queries, probe, bucket_vecs, bucket_ids, k)
+    return fn(queries, probe, bucket_vecs, bucket_ids, k, bucket_scales,
+              probe_bias)
 
 
 def homology_score_op(draft_ids, cache_doc_ids, cache_valid, row_group=None,
@@ -46,3 +51,18 @@ def homology_score_op(draft_ids, cache_doc_ids, cache_valid, row_group=None,
           else homology_score)
     return fn(draft_ids, cache_doc_ids, cache_valid, row_group, q_group,
               draft_weights)
+
+
+def lexical_score_op(q_terms, q_weights, doc_terms, doc_weights, k,
+                     tile_n: int = 512, backend: str | None = None):
+    fn = (lexical_score_plain if check_backend(backend) == "torch"
+          else lexical_score)
+    return fn(q_terms, q_weights, doc_terms, doc_weights, k, tile_n)
+
+
+def fused_rerank_op(queries, pool_ids, pool_vecs, kd, k, rrf_k: float = 60.0,
+                    diversify_sim: float | None = None,
+                    backend: str | None = None):
+    fn = (fused_rerank_plain if check_backend(backend) == "torch"
+          else fused_rerank)
+    return fn(queries, pool_ids, pool_vecs, kd, k, rrf_k, diversify_sim)

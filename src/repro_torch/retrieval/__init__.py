@@ -1,2 +1,3 @@
-"""Retrieval substrate: flat exact search, the IVF fuzzy index, the hashed
-lexical terms of the world, and the RetrievalService."""
+"""Retrieval substrate: flat exact search, the IVF index (f32 and int8
+residual codes), the hashed lexical channel, the hybrid cloud stage
+(fusion.py), and the RetrievalService with its backends."""

@@ -1,4 +1,4 @@
-"""Hashed-term helpers of the lexical channel (the world's postings).
+"""Hashed-term lexical (sparse) retrieval channel.
 
 The synthetic world has no real text, but its entity/attribute structure is
 exactly what a lexical index would key on: the entity name and the queried
@@ -11,12 +11,15 @@ rng draws, so dense embeddings and query streams stay bit-identical:
   * every query carries its entity term (weight 1.0) plus the queried
     (entity, attribute) term (weight 0.7).
 
-Only the hashing lives here.  The lexical scoring kernel and the hybrid
-cloud stage that read these postings are not part of the port yet.
+Scoring runs through the ``lexical_score`` kernel or its plain version
+behind the ``backend="cuda" | "torch"`` switch (:func:`lexical_topk`); the
+hybrid cloud stage (``retrieval/fusion.py``) calls it.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.kernels.ops import lexical_score_op
 
 LEXICAL_VOCAB = 1 << 20          # hashed term-id space
 ENTITY_TERM_WEIGHT = 1.0
@@ -71,3 +74,13 @@ def query_terms(entity: int, attr: int):
     return (np.array([entity_term(entity), attr_term(entity, attr)],
                      np.int32),
             np.array([ENTITY_TERM_WEIGHT, ATTR_TERM_WEIGHT], np.float32))
+
+
+def lexical_topk(q_terms, q_weights, doc_terms, doc_weights, k: int,
+                 backend: str | None = None, tile_n: int = 512):
+    """Channel top-k behind the kernel switch -> (vals [B,k] desc,
+    postings-row ids [B,k] int32); rows with no matched term come back as
+    ``-inf`` / ``-1``.  The order is the reference's streamed merge over
+    ``tile_n``-row tiles (``kernels/lexical_score.py``)."""
+    return lexical_score_op(q_terms, q_weights, doc_terms, doc_weights, k,
+                            tile_n=tile_n, backend=backend)

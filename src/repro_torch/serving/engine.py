@@ -3,8 +3,10 @@
 Both engines run on one serve-loop substrate (:class:`ServeLoop`): the loop
 owns metrics recording, record-rng threading and micro-batch iteration, and
 an engine implements ``_step`` (one query -> ids/accept/latency).  Full
-retrieval goes through the :class:`RetrievalService` backend.  This is
-Algorithm 1's sequential semantics: the cache changes between queries.
+retrieval goes through the :class:`RetrievalService` backend, with the
+query's hashed terms (``q["terms"]``, ``q["term_weights"]``), which only a
+lexical backend (``HybridBackend``) scores.  This is Algorithm 1's
+sequential semantics: the cache changes between queries.
 
 Recorded metrics (paper §IV):
 
@@ -129,7 +131,8 @@ class FullRetrievalEngine(ServeLoop):
     """Baseline: always full-database retrieval on the cloud."""
 
     def _step(self, q, rng, dataset):
-        ids, _, t = self.s.full_search(q["emb"])
+        ids, _, t = self.s.full_search(q["emb"], q.get("terms"),
+                                       q.get("term_weights"))
         return ids, False, self.s.latency.sample_cloud() + t
 
 
@@ -167,8 +170,9 @@ class HasEngine(ServeLoop):
         return lat.scan_time(lat.target_corpus * self.fuzzy_scope * 2.0
                              + self.cfg.n_buckets)
 
-    def step(self, q_emb: np.ndarray):
-        """Returns (ids, accept, latency_s, homology)."""
+    def step(self, q_emb: np.ndarray, q_terms=None, q_term_weights=None):
+        """Returns (ids, accept, latency_s, homology).  ``q_terms`` /
+        ``q_term_weights`` reach a lexical cloud backend on a reject."""
         lat = self.s.latency.sample_edge()
         q = as_f32(q_emb, self.device)
         synchronize(self.device)
@@ -183,7 +187,7 @@ class HasEngine(ServeLoop):
         homology = float(out["homology"][0])
         if accept:
             return out["draft_ids"][0].cpu().numpy(), True, lat, homology
-        ids, vecs, t = self.s.full_search(q)
+        ids, vecs, t = self.s.full_search(q, q_terms, q_term_weights)
         lat += self.s.latency.sample_cloud() + t
         t0 = time.perf_counter()
         cache_update(self.cfg, self.state, q, ids, vecs)
@@ -192,5 +196,6 @@ class HasEngine(ServeLoop):
         return ids, False, lat, homology
 
     def _step(self, q, rng, dataset):
-        ids, accept, lat, _ = self.step(q["emb"])
+        ids, accept, lat, _ = self.step(q["emb"], q.get("terms"),
+                                        q.get("term_weights"))
         return ids, accept, lat

@@ -14,9 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.fused_rerank import (final_topk, fused_scores,
+                                              fused_scores_plain)
 from repro_torch.kernels.homology_score import (homology_score,
                                                 homology_score_plain)
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+from repro_torch.kernels.lexical_score import (lexical_score,
+                                               lexical_score_plain)
 from repro_torch.kernels.topk_search import topk_search, topk_search_plain
 
 
@@ -112,3 +116,73 @@ def test_cuda_ivf_scan_vs_plain(cuda_dev, b, p, k):
     v1, i1 = ivf_scan(*args, k)
     torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
     assert _near_tie_ok(v0, i0, i1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,cap", [(1, 32, 977), (64, 32, 977), (2, 1, 5)])
+def test_cuda_ivf_scan_int8_vs_plain(cuda_dev, b, p, cap):
+    rng = np.random.default_rng(cap + b)
+    c, d, k = 96, 768, 10
+    codes = rng.integers(-127, 128, size=(c, cap, d)).astype(np.int8)
+    scales = rng.uniform(1e-4, 1e-3, size=(c, cap, 2)).astype(np.float32)
+    ids = rng.permutation(c * cap).reshape(c, cap).astype(np.int32)
+    ids[rng.random((c, cap)) < 0.3] = -1
+    ids[3] = -1                                  # an all-pad bucket
+    scales[4] = np.float32(1e-12)                # zero residuals
+    codes[4] = 0
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    probe = np.stack([rng.permutation(c)[:p] for _ in range(b)]) \
+        .astype(np.int32)
+    probe[0, 0] = 3
+    bias = rng.normal(size=(b, p)).astype(np.float32)
+    args = [_t(x).to(cuda_dev) for x in (q, probe, codes, ids)]
+    kw = dict(bucket_scales=_t(scales).to(cuda_dev),
+              probe_bias=_t(bias).to(cuda_dev))
+    v0, i0 = ivf_scan_plain(*args, k, **kw)
+    v1, i1 = ivf_scan(*args, k, **kw)
+    torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+    assert _near_tie_ok(v0, i0, i1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,vocab,tile_n", [(1, 500_000, 4000, 512),
+                                              (64, 50_000, 6, 512),
+                                              (3, 2000, 6, 256)])
+def test_cuda_lexical_score_vs_plain(cuda_dev, b, n, vocab, tile_n):
+    rng = np.random.default_rng(n)
+    dt = rng.integers(-1, vocab, (n, 5)).astype(np.int32)
+    dw = rng.choice([0.7, 1.0, 0.45], (n, 5)).astype(np.float32)
+    dw[dt < 0] = 0.0
+    qt = rng.integers(-1, vocab, (b, 2)).astype(np.int32)
+    qw = rng.choice([1.0, 0.7, 0.0], (b, 2)).astype(np.float32)
+    args = [_t(x).to(cuda_dev) for x in (qt, qw, dt, dw)]
+    v0, i0 = lexical_score_plain(*args, 10, tile_n=tile_n)
+    v1, i1 = lexical_score(*args, 10, tile_n=tile_n)
+    assert torch.equal(v1, v0) and torch.equal(i1, i0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dsim", [None, 0.5, 0.98])
+def test_cuda_fused_rerank_vs_plain(cuda_dev, dsim):
+    rng = np.random.default_rng(5)
+    b, d, kd, kl = 64, 768, 10, 10
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    ids = rng.integers(0, 40, size=(b, kd + kl)).astype(np.int32)
+    ids[0] = -1
+    ids[1, kd:] = ids[1, :kl]
+    ids[2, 3] = -1
+    vecs = rng.normal(size=(b, kd + kl, d)).astype(np.float32)
+    vecs[ids < 0] = 0.0
+    args = [_t(x).to(cuda_dev) for x in (q, ids, vecs)]
+    m0, r0 = fused_scores_plain(*args, kd, 60.0, dsim)
+    m1, r1 = fused_scores(*args, kd, 60.0, dsim)
+    assert torch.equal(m1, m0)
+    torch.testing.assert_close(r1, r0, rtol=1e-5, atol=1e-4)
+    v0, i0 = final_topk(m0, r0, args[1], 10)
+    v1, i1 = final_topk(m1, r1, args[1], 10)
+    assert torch.equal(v1, v0)
+    # ids may differ only between equal masses whose rscores nearly tie
+    for row, j in (i1 != i0).nonzero().tolist():
+        same = (v0[row] == v0[row, j]).nonzero()[:, 0]
+        rs = r0[row][torch.isin(args[1][row], i0[row, same])]
+        assert float(rs.max() - rs.min()) <= 1e-4
