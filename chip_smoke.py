@@ -9,9 +9,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    f32);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, in parallel);
-3. hold each of the six kernels against its plain PyTorch version at the
-   main-path shapes (B=1 and B=64) and at edge cases; time kernel, plain
-   version, library call and the bound;
+3. hold each of the eight kernels against its plain PyTorch version at the
+   main-path shapes (B=1 and B=64; decode attention at the RAG shape,
+   decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
+   Criteo tables, B=512) and at edge cases; time kernel, plain version,
+   library call and the bound; then the tables' lookup path: fresh B=512
+   batches through ``embedding_bag_op`` with its count set to 0 before;
+   the tables are freed before the world is built;
 4. Algorithm 1 (``FullRetrievalEngine`` on 400 queries, ``HasEngine`` on
    1500) at d=768, h_max=5000, doc_cap=50,000, 8192 IVF buckets / nprobe
    64, over 500,000 synthetic passages (100,000 entities); the launch
@@ -24,10 +28,18 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    over 512-row tiles; RRF k=60, diversify 0.98) under
    ``FullRetrievalEngine`` (400 queries) and ``HasEngine(fusion="rrf")``
    (1500), query terms forwarded; the counts are set to 0 before it and all
-   six kernels must be > 0 after; then a profiled window and a 300-query
+   six retrieval kernels must be > 0 after; then a profiled window and a 300-query
    replay with ``backend="torch"`` for speculation and cloud stage (accept
    bits equal, ids equal up to near-ties proven by recomputation);
-6. the ``kernels`` JSON line, then the result line
+6. the RAG generator (``examples/rag_serving.py``'s path): chatglm3-6b at
+   full width, all 28 layers, bf16, random weights from ``init_params`` on
+   the card, behind a fresh ``HasEngine`` on phase 4's world and index:
+   ``serve_rag`` over 64 requests, batch 8, prompt 2048, 64 greedy decode
+   steps; the counts are set to 0 before it and ``decode_attention`` must
+   launch exactly 28 x 64 x 8 times (layers x steps x batches); then one batch's decode window under
+   the profiler, and that batch replayed with each backend, its greedy
+   tokens equal except at proven near-ties of the logits;
+7. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -49,6 +61,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM non-tensor f32 / 32-bit (data sheet)
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
 SCORE_TOL = 1e-5               # f32 sums of 768 products in another order
 K = 10
 ENTITIES = 100_000             # 500,000 passages
@@ -61,6 +74,24 @@ HYBRID = dict(dense="ann", dense_k=K, lexical_k=K, rrf_k=60.0,
               ann_kwargs=dict(n_clusters=1024, nprobe=32, compressed=True))
 ANN_CAP = 977                  # ceil(500,000 / 1024 * 2)
 POOL = 2 * K                   # fused pool: dense_k + lexical_k slots
+RETRIEVAL_KERNELS = ("topk_search", "ivf_scan", "homology_score",
+                     "ivf_scan_int8", "lexical_score", "fused_rerank")
+DECODE_TOL = 2e-5              # f32 softmax sums in another order (rtol+atol)
+# Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
+CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
+                 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
+                 7046547, 18, 15, 286181, 105, 142572)
+# (fields' vocabularies, embed dim) of the repo's Criteo tables
+# (src/repro/configs/recsys_archs.py); rows padded to a multiple of 256
+BAG_TABLES = {"deepfm": (CRITEO_VOCABS + (100_000,) * 13, 10),
+              "dlrm-rm2": (CRITEO_VOCABS, 64)}
+BAG_BATCH = 512                # the serve_p99 shape
+BAG_PATH_BATCHES = 16          # fresh batches per table on the lookup path
+RAG_REQUESTS, RAG_BATCH, RAG_PROMPT, RAG_GEN = 64, 8, 2048, 64
+# kernel vs plain decode of one batch: logits agree within this (bf16
+# logits, |logit| < 8: up to 8 ulps of 2^-5), and where the greedy tokens
+# part, both runs' logits of the two tokens lie within it
+LOGIT_TOL = 0.25
 
 
 def log(*a):
@@ -93,15 +124,17 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def device_times(fn, reps: int, warm: bool = True) -> dict[str, float]:
+def device_times(fn, reps: int, warm: bool = True,
+                 counts: dict | None = None) -> dict[str, float]:
     """Device time (us) per call of every kernel ``fn`` runs, by name, from
     ``torch.profiler`` (CUPTI).  Empty if the profiler saw no device
-    activity."""
+    activity.  ``counts``, if given, receives the launches per call."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -118,6 +151,8 @@ def device_times(fn, reps: int, warm: bool = True) -> dict[str, float]:
         t = e.self_cuda_time_total if t is None else t
         if t > 0:
             out[e.key] = out.get(e.key, 0.0) + t / reps
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count / reps
     return out
 
 
@@ -550,6 +585,159 @@ def check_hybrid_kernels(dev, timer) -> dict:
     return res
 
 
+def check_decode_attention(dev, timer) -> dict:
+    """Phase 3 for the generator's kernel: decode_attention at the RAG
+    decode shape, at decode_32k and long_500k, and at edge cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    h, hkv, d = 32, 2, 128                        # chatglm3-6b
+    rec = {"cases": {}, "max_abs_err": 0.0, "tolerance": DECODE_TOL}
+
+    def inputs(b, s, dt=torch.bfloat16, heads=hkv):
+        return (torch.randn(b, h, d, device=dev, generator=g).to(dt),
+                torch.randn(b, s, heads, d, device=dev, generator=g).to(dt),
+                torch.randn(b, s, heads, d, device=dev, generator=g).to(dt))
+
+    def case(name, q, k, v, clen):
+        got = decode_attention(q, k, v, clen)
+        want = decode_attention_plain(q, k, v, clen)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"decode_attention/{name}: non-finite")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL):
+            raise AssertionError(f"decode_attention/{name}: error {err}")
+        rec["cases"][name] = {"max_abs_err": err}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    def timing(q, k, v, clen):
+        b, s = k.shape[:2]
+        n = clen + 1
+        elem = k.element_size()
+        n_bytes = q.numel() * elem + 2 * b * n * hkv * d * elem + b * h * d * 4
+        bms, by = bound(n_bytes, 4 * b * h * n * d, BF16_OPS_PER_S)
+        kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                  enable_gqa=True)
+        return {"shape": f"B={b}, S={s}, H={h}, Hkv={hkv}, D={d}, "
+                         f"cache_len={clen}, {str(k.dtype)[6:]}",
+                "ms": timer(lambda: decode_attention(q, k, v, clen)),
+                "plain_ms": timer(lambda: decode_attention_plain(q, k, v,
+                                                                 clen),
+                                  reps=10),
+                "library_ms": timer(library, reps=10),
+                "bound_ms": bms, "bound_by": by,
+                "kernel_device_us": own_kernel_us(device_times(
+                    lambda: decode_attention(q, k, v, clen), 20),
+                    ("decode_chunk_kernel", "decode_combine_kernel"))}
+
+    s_rag = RAG_PROMPT + RAG_GEN
+    q, k, v = inputs(RAG_BATCH, s_rag)
+    for clen in (RAG_PROMPT, s_rag - 1, 0):       # first, last decode step
+        case(f"RAG B=8 S={s_rag} cache_len={clen}", q, k, v, clen)
+    case("RAG, cache_len as a device tensor", q, k, v,
+         torch.tensor(s_rag - 1000, device=dev))
+    rec["rag"] = timing(q, k, v, s_rag - 1)
+    for name, b, s in (("decode_32k", 128, 32768), ("long_500k", 1, 524288)):
+        q, k, v = inputs(b, s)
+        case(f"{name} cache_len=S-1", q, k, v, s - 1)
+        rec[name] = timing(q, k, v, s - 1)
+        del q, k, v
+        torch.cuda.empty_cache()
+    q, k, v = inputs(3, 4099)
+    case("S=4099 (not a multiple of the chunk)", q, k, v, 4098)
+    case("S=4099, cache_len 0", q, k, v, 0)
+    q, k, v = inputs(4, 1000, torch.float32)
+    case("f32", q, k, v, 700)
+    q, k, v = inputs(2, 1000, torch.float32, heads=h)
+    case("f32, Hkv == H (the TPU signature)", q, k, v, 999)
+    return {"decode_attention": rec}
+
+
+def criteo_ids(vocabs, b, gen, dev) -> torch.Tensor:
+    """[b, fields] int32 global row ids, uniform within each field."""
+    v = torch.tensor(vocabs, dtype=torch.float64, device=dev)
+    off = torch.cumsum(v, 0) - v
+    u = torch.rand(b, len(vocabs), dtype=torch.float64, device=dev,
+                   generator=gen)
+    local = torch.minimum((u * v).floor(), v - 1)
+    return (off + local).to(torch.int32)
+
+
+def check_embedding_bag(dev, timer) -> tuple[dict, dict]:
+    """Phase 3 for the EmbeddingBag at the repo's Criteo tables, then the
+    tables' lookup path through ``embedding_bag_op``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    from repro_torch.kernels.ops import embedding_bag_op
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rec = {"cases": {}, "max_abs_err": 0.0}
+    tables = {}
+    for name, (vocabs, dim) in BAG_TABLES.items():
+        rows = (sum(vocabs) + 255) // 256 * 256
+        tables[name] = (torch.randn(rows, dim, device=dev, generator=g)
+                        * 0.05, vocabs)
+
+    def case(name, table, ids, w=None, mode="sum"):
+        got = embedding_bag(table, ids, w, mode)
+        want = embedding_bag_plain(table, ids, w, mode)
+        if got.dtype != table.dtype or not torch.equal(got, want):
+            raise AssertionError(f"embedding_bag/{name}: kernel and plain "
+                                 f"differ (must be bit-equal)")
+        rec["cases"][name] = {"max_abs_err": 0.0}
+
+    for name, (table, vocabs) in tables.items():
+        ids = criteo_ids(vocabs, BAG_BATCH, g, dev)
+        w = torch.rand(ids.shape, device=dev, generator=g)
+        case(f"{name} sum", table, ids)
+        case(f"{name} mean", table, ids, mode="mean")
+        case(f"{name} weighted", table, ids, w)
+        ids64 = ids.long()
+        uniq = int(torch.unique(ids).numel())
+        n_bytes = uniq * table.shape[1] * 4 + ids.numel() * 4 \
+            + BAG_BATCH * table.shape[1] * 4
+        bms, by = bound(n_bytes, 2 * ids.numel() * table.shape[1])
+        rec[name] = {
+            "shape": f"B={BAG_BATCH}, {len(vocabs)} fields, table "
+                     f"{table.shape[0]:,} x {table.shape[1]} f32",
+            "ms": timer(lambda: embedding_bag(table, ids)),
+            "plain_ms": timer(lambda: embedding_bag_plain(table, ids)),
+            "library_ms": timer(lambda: F.embedding_bag(ids64, table,
+                                                        mode="sum")),
+            "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": own_kernel_us(device_times(
+                lambda: embedding_bag(table, ids), 20), ("bag_kernel",))}
+    table, vocabs = tables["dlrm-rm2"]
+    ids = criteo_ids(vocabs, BAG_BATCH, g, dev)
+    small = table[:4_000_000].to(torch.bfloat16)
+    case("bf16 table, sum", small, ids % small.shape[0])
+    case("bf16 table, weighted mean", small, ids % small.shape[0],
+         torch.rand(ids.shape, device=dev, generator=g), "mean")
+    del small
+
+    # the lookup path: fresh serve_p99 batches through the ops entry point
+    embedding_bag.launches = 0
+    outs = []
+    for name, (table, vocabs) in tables.items():
+        for _ in range(BAG_PATH_BATCHES):
+            out = embedding_bag_op(table, criteo_ids(vocabs, BAG_BATCH, g,
+                                                     dev))
+            outs.append(bool(torch.isfinite(out).all()))
+    path = {"launches": {"embedding_bag": embedding_bag.launches},
+            "batches": len(outs), "finite": all(outs)}
+    if path["launches"]["embedding_bag"] != len(outs) or not all(outs):
+        raise AssertionError(f"embedding_bag lookup path: {path}")
+    return {"embedding_bag": rec}, path
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the two main paths and their plain replays
 # ---------------------------------------------------------------------------
@@ -695,7 +883,7 @@ def algorithm1_path(dev, world, queries, counters) -> dict:
                       "near_tie_swaps": swaps,
                       "dar_plain": float(np.mean([s[1] for s in
                                                   plain_steps]))}
-    return info, index
+    return info, index, service
 
 
 def int8_score_of(index, q, probe, cvals):
@@ -778,8 +966,8 @@ def hybrid_path(dev, world, queries, index, counters) -> dict:
     info["has_serve_s"] = time.perf_counter() - t0
     info["launches"] = counters.read()
     info["full"], info["has"] = full.summary(), res.summary()
-    for name, n in info["launches"].items():
-        if n <= 0:
+    for name in RETRIEVAL_KERNELS:
+        if info["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the hybrid "
                                  f"path")
     check_steps("hybrid path", steps, info["has"])
@@ -821,6 +1009,153 @@ def hybrid_path(dev, world, queries, index, counters) -> dict:
     return info
 
 
+def decode_run(params, cfg, prompt, backend):
+    """One batch through prefill and RAG_GEN greedy decode steps, keeping
+    every step's logits (f32): (tokens [B, RAG_GEN+1], logits)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import first_argmax
+
+    b, n = prompt.shape
+    lg = tf.prefill(params, prompt, cfg)
+    cache = tf.init_kv_cache(cfg, b, n + RAG_GEN, device=prompt.device)
+    toks, logits = [first_argmax(lg).int()], [lg.float()]
+    for j in range(RAG_GEN):
+        lg, cache = tf.decode_step(params, cache, toks[-1], n + j, cfg,
+                                   backend=backend)
+        toks.append(first_argmax(lg).int())
+        logits.append(lg.float())
+    return torch.stack(toks, 1), torch.stack(logits, 1)
+
+
+def compare_greedy(tk, lk, tp, lp) -> dict:
+    """Kernel run (tk, lk) vs plain run (tp, lp) of one batch.  While a
+    row's tokens agree its logits must agree within LOGIT_TOL; where they
+    first part, the two tokens must be a near-tie in both runs (logits
+    within LOGIT_TOL).  The row is then left out: its inputs differ."""
+    tk, tp = tk.cpu(), tp.cpu()
+    max_err, parted = 0.0, []
+    for row in range(tk.shape[0]):
+        diff = (tk[row] != tp[row]).nonzero()
+        stop = int(diff[0, 0]) if len(diff) else tk.shape[1]
+        upto = min(stop + 1, tk.shape[1])        # the parting step included
+        err = float((lk[row, :upto] - lp[row, :upto]).abs().max())
+        max_err = max(max_err, err)
+        if err > LOGIT_TOL:
+            raise AssertionError(f"RAG replay: logits of row {row} differ by "
+                                 f"{err}")
+        if stop < tk.shape[1]:
+            a, b = int(tk[row, stop]), int(tp[row, stop])
+            gaps = [float((lg[row, stop, a] - lg[row, stop, b]).abs())
+                    for lg in (lk, lp)]
+            if max(gaps) > LOGIT_TOL:
+                raise AssertionError(f"RAG replay: tokens {a} vs {b} at row "
+                                     f"{row}, step {stop} are not a "
+                                     f"near-tie ({gaps})")
+            parted.append({"row": row, "step": stop, "tokens": [a, b],
+                           "logit_gaps": gaps})
+    return {"max_logit_err": max_err, "logit_tol": LOGIT_TOL,
+            "parted_rows": parted,
+            "tokens_equal": int((tk == tp).all(dim=1).sum())}
+
+
+def rag_path(dev, world, service, index, counters) -> dict:
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.core.has import HasConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import HasEngine
+    from repro_torch.serving.rag import build_prompt, serve_rag
+    from repro_torch.utils import first_argmax
+
+    info = {}
+    cfg = LM_CONFIGS["chatglm3-6b"]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    info["init_params_s"] = time.perf_counter() - t0
+    info["params"] = cfg.param_count()
+    engine = HasEngine(service, HasConfig(k=K, tau=0.2, h_max=5000,
+                                          doc_capacity=50_000, nprobe=64,
+                                          n_buckets=8192, d=768),
+                       index=index)
+    queries = world.sample_queries(RAG_REQUESTS, **stream_kw(), seed=3)
+
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve_rag(engine, queries, params, cfg, batch=RAG_BATCH,
+                    prompt_len=RAG_PROMPT, gen_len=RAG_GEN)
+    info["serve_s"] = time.perf_counter() - t0
+    info["launches"] = counters.read()
+    info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layers * RAG_GEN * (RAG_REQUESTS // RAG_BATCH)
+    if info["launches"]["decode_attention"] != want:
+        raise AssertionError(f"decode_attention launched "
+                             f"{info['launches']['decode_attention']} times "
+                             f"on the RAG path, want {want}")
+    for name in ("topk_search", "ivf_scan", "homology_score"):
+        if info["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the RAG path")
+    if res.tokens.shape != (RAG_REQUESTS, RAG_GEN + 1) or \
+            res.ids.shape != (RAG_REQUESTS, K) or \
+            not ((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all() or \
+            not np.isfinite(res.ttft_s).all() or (res.decode_tps <= 0).any():
+        raise AssertionError("RAG path: malformed output")
+    info["summary"] = res.summary()
+    info["ttft_s"] = res.ttft_s.tolist()
+    info["decode_tps"] = res.decode_tps.tolist()
+    info["distinct_tokens"] = int(len(np.unique(res.tokens)))
+
+    # one batch again: its decode window profiled, then each backend
+    prompt = torch.as_tensor(
+        build_prompt(queries[:RAG_BATCH], res.ids[:RAG_BATCH], RAG_PROMPT),
+        dtype=torch.int32, device=dev)
+    first = first_argmax(tf.prefill(params, prompt, cfg)).int()
+
+    def window():
+        cache = tf.init_kv_cache(cfg, RAG_BATCH, RAG_PROMPT + RAG_GEN,
+                                 device=dev)
+        tok = first
+        for j in range(RAG_GEN):
+            lg, cache = tf.decode_step(params, cache, tok, RAG_PROMPT + j,
+                                       cfg)
+            tok = first_argmax(lg).int()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / RAG_GEN
+    counts = {}
+    times = device_times(window, 1, warm=False, counts=counts)
+    busy = sum(times.values()) / RAG_GEN
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    info["profile"] = {
+        "steps": RAG_GEN, "wall_us_per_step": wall_us,
+        "device_busy_us_per_step": busy,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "launches_per_step": sum(counts.values()) / RAG_GEN,
+        "decode_attention_us_per_step": own_kernel_us(
+            times, ("decode_chunk_kernel", "decode_combine_kernel"))
+        / RAG_GEN,
+        "top_kernels_us_per_step": {k[:90]: v / RAG_GEN for k, v in top}}
+
+    pre = device_times(lambda: tf.prefill(params, prompt, cfg), 1)
+    top = sorted(pre.items(), key=lambda kv: -kv[1])[:8]
+    info["prefill_profile"] = {
+        "device_busy_ms": sum(pre.values()) / 1e3,
+        "top_kernels_ms": {k[:90]: v / 1e3 for k, v in top}}
+
+    tk, lk = decode_run(params, cfg, prompt, None)
+    if not torch.equal(tk.cpu(), torch.as_tensor(res.tokens[:RAG_BATCH])):
+        raise AssertionError("RAG replay: the kernel run does not repeat "
+                             "serve_rag's tokens")
+    tp, lp = decode_run(params, cfg, prompt, "torch")
+    info["replay"] = compare_greedy(tk, lk, tp, lp)
+    del params
+    torch.cuda.empty_cache()
+    return info
+
+
 def stream_kw() -> dict:
     from repro_torch.data.synthetic import DATASETS
     ds = DATASETS["granola"]
@@ -836,6 +1171,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.fused_rerank import fused_scores
     from repro_torch.kernels.homology_score import homology_score
     from repro_torch.kernels.ivf_scan import ivf_scan
@@ -848,7 +1185,9 @@ def main() -> int:
         "homology_score": (homology_score, "launches"),
         "ivf_scan_int8": (ivf_scan, "launches_int8"),
         "lexical_score": (lexical_score, "launches"),
-        "fused_rerank": (fused_scores, "launches")})
+        "fused_rerank": (fused_scores, "launches"),
+        "decode_attention": (decode_attention, "launches"),
+        "embedding_bag": (embedding_bag, "launches")})
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     # phase 1: the card
@@ -882,22 +1221,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     kres.update(check_hybrid_kernels(dev, timer))
     torch.cuda.empty_cache()
+    kres.update(check_decode_attention(dev, timer))
+    torch.cuda.empty_cache()
+    bag_res, bag_path = check_embedding_bag(dev, timer)
+    kres.update(bag_res)
+    torch.cuda.empty_cache()                      # the tables are gone
     phase3_s = time.perf_counter() - t0
     log(f"tolerance vs plain: scores within {SCORE_TOL} (f32 sums in "
         f"another order), ids equal except swaps of candidates whose "
         f"scores lie within it; unweighted homology, lexical scores and "
-        f"ids, and fused masses bit-equal; weighted homology within 1e-6")
+        f"ids, fused masses and the EmbeddingBag bit-equal; weighted "
+        f"homology within 1e-6; decode attention within {DECODE_TOL} "
+        f"(rtol and atol)")
     for name, r in kres.items():
-        for b in (1, 64):
-            t = r[f"B={b}"]
+        for key, t in r.items():
+            if not (isinstance(t, dict) and "ms" in t):
+                continue
             lib = "n/a" if t["library_ms"] is None \
                 else f"{t['library_ms']:.4f}"
-            log(f"{name} B={b}: kernel {t['ms']:.4f} ms, plain "
+            log(f"{name} {key}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
                 f"{t['bound_ms']:.5f} ms ({t['bound_by']}); kernels alone "
                 f"{t['kernel_device_us']:.1f} us (profiler); max_abs_err "
                 f"{r['max_abs_err']:.3g}, near-tie swaps "
                 f"{r.get('swaps', 0)}")
+    log(f"embedding_bag lookup path: {bag_path['batches']} batches of "
+        f"{BAG_BATCH} through embedding_bag_op, launches "
+        f"{bag_path['launches']['embedding_bag']}")
 
     # phases 4-5
     t0 = time.perf_counter()
@@ -906,7 +1256,7 @@ def main() -> int:
     queries = world.sample_queries(HAS_QUERIES, **stream_kw(), seed=1)
     log(f"world: {world.cfg.n_docs} passages, d=768, built in "
         f"{world_s:.1f} s")
-    info, index = algorithm1_path(dev, world, queries, counters)
+    info, index, service = algorithm1_path(dev, world, queries, counters)
     hyb = hybrid_path(dev, world, queries, index, counters)
     for title, r in (("Algorithm 1", info), ("hybrid cloud stage", hyb)):
         f, s = r["full"], r["has"]
@@ -935,6 +1285,39 @@ def main() -> int:
             f"backend=torch): accept bits equal, near-tie id swaps "
             f"{r['replay']['near_tie_swaps']}")
 
+    # phase 6: the RAG generator
+    rag = rag_path(dev, world, service, index, counters)
+    sm, pr, rp = rag["summary"], rag["profile"], rag["replay"]
+    log(f"[RAG] chatglm3-6b ({rag['params'] / 1e9:.2f} B params, bf16, 28 "
+        f"layers; weights drawn in {rag['init_params_s']:.1f} s): "
+        f"{sm['requests']} requests, batch {RAG_BATCH}, prompt "
+        f"{RAG_PROMPT}, {RAG_GEN} decode steps in {rag['serve_s']:.1f} s; "
+        f"peak memory {rag['peak_memory_gb']:.1f} GB")
+    log(f"[RAG] TTFT (prefill, batch of {RAG_BATCH}) mean "
+        f"{sm['ttft_avg_s'] * 1e3:.1f} ms, per batch "
+        f"{[round(t * 1e3, 1) for t in rag['ttft_s']]} ms; decode "
+        f"{sm['decode_tps_avg']:.1f} tokens/s mean, per batch "
+        f"{[round(t, 1) for t in rag['decode_tps']]}; retrieval DAR "
+        f"{sm['dar']:.4f}; {rag['distinct_tokens']} distinct tokens")
+    log(f"[RAG] launches: {rag['launches']}")
+    log(f"[RAG] decode window of {pr['steps']} steps (batch "
+        f"{RAG_BATCH}): {pr['wall_us_per_step']:.1f} us/step wall, device "
+        f"busy {pr['device_busy_us_per_step']:.1f} us/step (profiler), idle "
+        f"share {pr['device_idle_share']:.3f}, "
+        f"{pr['launches_per_step']:.0f} kernel launches/step; "
+        f"decode_attention "
+        f"{pr['decode_attention_us_per_step']:.1f} us/step; top kernels "
+        f"us/step: {json.dumps(pr['top_kernels_us_per_step'])}")
+    pp = rag["prefill_profile"]
+    log(f"[RAG] one prefill (batch {RAG_BATCH} x {RAG_PROMPT}): device busy "
+        f"{pp['device_busy_ms']:.1f} ms (profiler); top kernels ms: "
+        f"{json.dumps(pp['top_kernels_ms'])}")
+    log(f"[RAG] replay of batch 0, backend=torch vs the kernel: "
+        f"{rp['tokens_equal']}/{RAG_BATCH} rows' tokens equal; logits "
+        f"within {rp['max_logit_err']:.4g} (tolerance {LOGIT_TOL}) until a "
+        f"row's tokens part; parted at proven near-ties: "
+        f"{rp['parted_rows']}")
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -947,10 +1330,15 @@ def main() -> int:
         "lexical_score": ("lexical_score.cu",
                           "src/repro/kernels/lexical_score.py:107", hyb),
         "fused_rerank": ("fused_rerank.cu",
-                         "src/repro/kernels/fused_rerank.py:84", hyb)}
+                         "src/repro/kernels/fused_rerank.py:84", hyb),
+        "decode_attention": ("decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:21", rag),
+        "embedding_bag": ("embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag.py:19", bag_path)}
+    main_shape = {"decode_attention": "rag", "embedding_bag": "dlrm-rm2"}
     kernels = []
     for name, (src, replaces, path) in sources.items():
-        t = kres[name]["B=1"]
+        t = kres[name][main_shape.get(name, "B=1")]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces,
                         "launches": path["launches"][name],
@@ -964,7 +1352,8 @@ def main() -> int:
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "tf32": tf32, "build_s": build_s, "build_log": _build.build_log,
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
-         "main_path": info, "hybrid_path": hyb,
+         "main_path": info, "hybrid_path": hyb, "rag_path": rag,
+         "embedding_bag_path": bag_path,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

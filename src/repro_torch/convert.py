@@ -1,12 +1,15 @@
 """Carry state across the two packages as plain numpy arrays.
 
-The reference (``repro``) and the port build their IVF indexes with
-different random draws, so a comparison hands one index to both.  These
-functions turn a mapping of numpy arrays (field name -> array) into the
-port's :class:`IVFIndex` / :class:`CompressedIVFIndex` / :class:`HasState`
-on a device, and back.  A caller holding the reference's objects makes the
-mapping with ``{f: np.asarray(getattr(obj, f)) for f in IVF_FIELDS}``
-(``COMPRESSED_IVF_FIELDS`` for a compressed index).
+The reference (``repro``) and the port build their IVF indexes and draw
+their weights with different random draws, so a comparison hands one set
+to both.  These functions turn a mapping of numpy arrays (field name ->
+array) into the port's :class:`IVFIndex` / :class:`CompressedIVFIndex` /
+:class:`HasState` on a device, and back.  A caller holding the reference's
+objects makes the mapping with
+``{f: np.asarray(getattr(obj, f)) for f in IVF_FIELDS}``
+(``COMPRESSED_IVF_FIELDS`` for a compressed index).  A transformer's
+parameters go across as the reference's nested dict of numpy arrays, with
+the per-layer leaves stacked over a leading ``n_layers`` dim.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.has import HasState
+from repro_torch.models.transformer import TransformerConfig
 from repro_torch.retrieval.ivf import CompressedIVFIndex, IVFIndex
 from repro_torch.utils import resolve_device
 
@@ -68,3 +72,44 @@ def has_state_from_numpy(arrays: Mapping[str, np.ndarray],
 
 def has_state_to_numpy(state: HasState) -> dict[str, np.ndarray]:
     return {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+
+
+def transformer_params_from_numpy(tree: Mapping, cfg: TransformerConfig,
+                                  device=None,
+                                  dtype=torch.bfloat16) -> dict:
+    """The reference's parameter tree (numpy leaves, layers stacked) -> the
+    port's parameters in ``dtype`` (``final_norm`` stays f32, as the
+    reference never casts it)."""
+    dev = resolve_device(device)
+
+    def leaf(a, dt=dtype):
+        return torch.tensor(np.asarray(a, np.float32), dtype=dt, device=dev)
+
+    def layer(sub, i):
+        return {k: layer(v, i) if isinstance(v, Mapping) else leaf(v[i])
+                for k, v in sub.items()}
+
+    n = len(tree["layers"]["attn"]["wq"])
+    if n != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {n} stacked layers, config has "
+                         f"{cfg.n_layers}")
+    return {"embed": leaf(tree["embed"]), "unembed": leaf(tree["unembed"]),
+            "final_norm": {"scale": leaf(tree["final_norm"]["scale"],
+                                         torch.float32)},
+            "layers": [layer(tree["layers"], i) for i in range(n)]}
+
+
+def transformer_params_to_numpy(params: Mapping) -> dict:
+    """The port's parameters -> the reference's tree of f32 numpy arrays,
+    per-layer leaves stacked over layers."""
+    def arr(t):
+        return t.float().cpu().numpy()
+
+    def stack(subs):
+        first = subs[0]
+        return {k: stack([s[k] for s in subs]) if isinstance(first[k], Mapping)
+                else np.stack([arr(s[k]) for s in subs]) for k in first}
+
+    return {"embed": arr(params["embed"]), "unembed": arr(params["unembed"]),
+            "final_norm": {"scale": arr(params["final_norm"]["scale"])},
+            "layers": stack(params["layers"])}

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 KERNELS = ("topk_search", "ivf_scan", "homology_score", "lexical_score",
-           "fused_rerank")
+           "fused_rerank", "decode_attention", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,13 @@ SIGNATURES = {
     },
     "fused_rerank": {
         "has_fused_rerank": [_P] * 5 + [_I] * 4 + [_F, _I, _F, _P],
+    },
+    "decode_attention": {
+        "has_decode_attention": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7
+                                + [_F, _I, _I, _P],
+    },
+    "embedding_bag": {
+        "has_embedding_bag": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
     },
 }
 

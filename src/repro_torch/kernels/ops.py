@@ -11,6 +11,10 @@ The port's twin of the reference's ``backend="pallas" | "xla"``:
 """
 from __future__ import annotations
 
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_plain)
 from repro_torch.kernels.fused_rerank import fused_rerank, fused_rerank_plain
 from repro_torch.kernels.homology_score import (homology_score,
                                                 homology_score_plain)
@@ -66,3 +70,17 @@ def fused_rerank_op(queries, pool_ids, pool_vecs, kd, k, rrf_k: float = 60.0,
     fn = (fused_rerank_plain if check_backend(backend) == "torch"
           else fused_rerank)
     return fn(queries, pool_ids, pool_vecs, kd, k, rrf_k, diversify_sim)
+
+
+def decode_attention_op(q, k_cache, v_cache, cache_len,
+                        backend: str | None = None):
+    fn = (decode_attention_plain if check_backend(backend) == "torch"
+          else decode_attention)
+    return fn(q, k_cache, v_cache, cache_len)
+
+
+def embedding_bag_op(table, ids, weights=None, mode: str = "sum",
+                     backend: str | None = None):
+    fn = (embedding_bag_plain if check_backend(backend) == "torch"
+          else embedding_bag)
+    return fn(table, ids, weights, mode)

@@ -9,11 +9,17 @@ only PyTorch:
 Scores must agree to 1e-5 (f32 sums of 768 products taken in another
 order); ids must be equal except swaps between candidates whose scores lie
 within that tolerance; unweighted homology scores must be bit-equal.
+Decode attention agrees to 2e-5 (f32 softmax sums in another order, the
+reference's own f32 tolerance); the EmbeddingBag is bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_plain)
 from repro_torch.kernels.fused_rerank import (final_topk, fused_scores,
                                               fused_scores_plain)
 from repro_torch.kernels.homology_score import (homology_score,
@@ -186,3 +192,44 @@ def test_cuda_fused_rerank_vs_plain(cuda_dev, dsim):
         same = (v0[row] == v0[row, j]).nonzero()[:, 0]
         rs = r0[row][torch.isin(args[1][row], i0[row, same])]
         assert float(rs.max() - rs.min()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,dt,clen", [
+    (8, 2112, 32, 2, 128, torch.bfloat16, 2100),     # the RAG shape
+    (1, 4099, 32, 2, 128, torch.bfloat16, 4098),     # S % chunk != 0
+    (2, 1000, 8, 8, 64, torch.float32, 999),         # Hkv == H
+    (3, 777, 6, 2, 16, torch.float32, 500),          # group of 3
+    (4, 300, 32, 2, 128, torch.bfloat16, 0),         # one valid position
+])
+def test_cuda_decode_attention_vs_plain(cuda_dev, b, s, h, hkv, d, dt, clen):
+    g = torch.Generator(device=cuda_dev).manual_seed(s)
+    q = torch.randn(b, h, d, device=cuda_dev, generator=g).to(dt)
+    k = torch.randn(b, s, hkv, d, device=cuda_dev, generator=g).to(dt)
+    v = torch.randn(b, s, hkv, d, device=cuda_dev, generator=g).to(dt)
+    want = decode_attention_plain(q, k, v, clen)
+    n0 = decode_attention.launches
+    for length in (clen, torch.tensor(clen, device=cuda_dev)):
+        got = decode_attention(q, k, v, length)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert decode_attention.launches == n0 + 2
+    empty = decode_attention(q, k, v, -1)        # nothing valid: zeros
+    assert not empty.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,weighted,dt", [
+    ("sum", False, torch.float32), ("mean", False, torch.float32),
+    ("sum", True, torch.float32), ("mean", True, torch.bfloat16),
+    ("sum", False, torch.bfloat16)])
+def test_cuda_embedding_bag_vs_plain(cuda_dev, mode, weighted, dt):
+    g = torch.Generator(device=cuda_dev).manual_seed(3)
+    v, d, b, n = 100_000, 64, 512, 26
+    table = torch.randn(v, d, device=cuda_dev, generator=g).to(dt)
+    ids = torch.randint(0, v, (b, n), device=cuda_dev, generator=g,
+                        dtype=torch.int32)
+    w = (torch.randn(b, n, device=cuda_dev, generator=g) if weighted
+         else None)
+    want = embedding_bag_plain(table, ids, w, mode)
+    got = embedding_bag(table, ids, w, mode)
+    assert got.dtype == dt and torch.equal(got, want)

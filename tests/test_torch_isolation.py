@@ -18,9 +18,12 @@ import torch
 from repro_torch.core.has import HasConfig, init_has_state
 from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
 from repro_torch.kernels import _build
+from repro_torch.models import transformer as tf
 from repro_torch.retrieval.ivf import build_ivf
 from repro_torch.retrieval.service import RetrievalService
+from repro_torch.serving.engine import HasEngine
 from repro_torch.serving.latency import LatencyModel
+from repro_torch.serving.rag import serve_rag
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -53,10 +56,25 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         build_ivf(world.doc_emb, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_has_state(HasConfig(h_max=4, d=8))
+    cfg = tf.TransformerConfig(name="t", n_layers=1, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_ff=32, vocab_size=4096,
+                               d_head=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_params(cfg)
     # asked for explicitly, the CPU works
     service = RetrievalService(world, LatencyModel(), device="cpu")
     assert service.corpus.device.type == "cpu"
     assert service.corpus.dtype == torch.float32
+    params = tf.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    engine = HasEngine(service, HasConfig(h_max=4, d=8, n_buckets=4,
+                                          nprobe=2))
+    queries = world.sample_queries(2, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_rag(engine, queries, params, cfg, batch=2)
+    res = serve_rag(engine, queries, params, cfg, batch=2, prompt_len=16,
+                    gen_len=2, device="cpu")
+    assert res.tokens.shape == (2, 3)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
