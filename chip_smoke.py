@@ -10,10 +10,14 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, in parallel);
 3. hold each of the eight kernels against its plain PyTorch version at the
-   main-path shapes (B=1 and B=64; decode attention at the RAG shape,
-   decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
-   Criteo tables, B=512) and at edge cases; time kernel, plain version,
-   library call and the bound; then the tables' lookup path: fresh B=512
+   main-path shapes (B=1 and B=64, topk_search also at B=7 and B=65 and at
+   k=1 and k=100; decode attention at the RAG shape for chatglm3-6b's
+   G=16 and the G=4 and G=9 of the other dense configs, decode_32k and
+   long_500k; the EmbeddingBag at the deepfm and dlrm-rm2 Criteo tables,
+   B=512) and at edge cases; time kernel, plain version, library call and
+   the bound; print ptxas's registers and spills per kernel and the
+   dynamic shared memory of the redesigned ones; then the tables' lookup
+   path: fresh B=512
    batches through ``embedding_bag_op`` with its count set to 0 before;
    the tables are freed before the world is built;
 4. Algorithm 1 (``FullRetrievalEngine`` on 400 queries, ``HasEngine`` on
@@ -49,6 +53,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +82,9 @@ POOL = 2 * K                   # fused pool: dense_k + lexical_k slots
 RETRIEVAL_KERNELS = ("topk_search", "ivf_scan", "homology_score",
                      "ivf_scan_int8", "lexical_score", "fused_rerank")
 DECODE_TOL = 2e-5              # f32 softmax sums in another order (rtol+atol)
+# the hand-written kernels' names, for the profiler's device times
+TOPK_KERNELS = ("topk_scan_kernel", "topk_block_merge_kernel")
+DECODE_KERNELS = ("decode_attn_mma_kernel", "decode_attn_simt_kernel")
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -156,10 +164,63 @@ def device_times(fn, reps: int, warm: bool = True,
     return out
 
 
+def own_kernels(times: dict[str, float], names) -> dict[str, float]:
+    """Device time (us) of the kernels whose name contains one of ``names``
+    (the hand-written ones; not torch's allocations or fills), by short
+    name."""
+    out = {}
+    for k, t in times.items():
+        for n in names:
+            if n in k:
+                out[n] = out.get(n, 0.0) + t
+    return out
+
+
 def own_kernel_us(times: dict[str, float], names) -> float:
-    """Summed device time of the kernels whose name contains one of
-    ``names`` (the hand-written ones; not torch's allocations or fills)."""
-    return sum(t for k, t in times.items() if any(n in k for n in names))
+    return sum(own_kernels(times, names).values())
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel symbol: the last
+    length-prefixed identifier that ends in ``_kernel``."""
+    found = None
+    for m in re.finditer(r"(?=(\d+))", mangled):    # every digit suffix
+        n, at = int(m.group(1)), m.start() + len(m.group(1))
+        name = mangled[at:at + n]
+        if name.endswith("_kernel") and name.replace("_", "").isalnum():
+            found = (name, mangled[at + n:])
+    if found is None:
+        return mangled
+    name, rest = found
+    args = []
+    if rest.startswith("I"):
+        args = ["".join(a) for a in re.findall(
+            r"Li(\d+)E|(bfloat16)|I(f)(?=L)", rest[:rest.find("EE") + 1])]
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(text: str) -> dict[str, dict]:
+    """Registers, static shared memory and spills per kernel from nvcc's
+    ``-Xptxas -v`` output, keyed by a short form of the kernel's name."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = out.setdefault(kernel_name(m.group(1)), {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fn["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            fn["smem"] = int(m.group(1))
+    return out
 
 
 def float_err(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
@@ -228,8 +289,11 @@ def check_kernels(dev, timer) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["swaps"] += sw
 
-    for b in (1, 64):
+    for b in (1, 7, 64, 65):                      # 7, 65: ragged query tiles
         topk_case(f"B={b},N=50000", unit(b), ring, valid)
+    for k in (1, 100):
+        topk_case(f"B=1,N=50000,k={k}", unit(1), ring, valid, k=k)
+        topk_case(f"B=64,N=50000,k={k}", unit(64), ring, valid, k=k)
     topk_case("tail tile N=300", unit(3), ring[:300].contiguous(),
               valid[:300].contiguous())
     topk_case("empty ring", unit(2), ring[:1000].contiguous(),
@@ -245,14 +309,15 @@ def check_kernels(dev, timer) -> dict:
         n_bytes = q.numel() * 4 + ring.numel() * 4 + valid.numel() \
             + b * K * 8
         bms, by = bound(n_bytes, 2 * b * ring.numel())
+        own = own_kernels(device_times(
+            lambda: topk_search(q, ring, K, valid), 20), TOPK_KERNELS)
         rec[f"B={b}"] = {
             "ms": timer(lambda: topk_search(q, ring, K, valid)),
             "plain_ms": timer(lambda: topk_search_plain(q, ring, K, valid)),
             "library_ms": timer(lambda: torch.topk(q @ ring.T, K)),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: topk_search(q, ring, K, valid), 20),
-                ("topk_chunk_kernel", "topk_merge_kernel"))}
+            "kernel_device_us": sum(own.values()),
+            "kernel_device_us_by_name": own}
     del ring
 
     # -- ivf_scan: the fuzzy channel's probed-bucket scan ------------------
@@ -590,15 +655,18 @@ def check_decode_attention(dev, timer) -> dict:
     decode shape, at decode_32k and long_500k, and at edge cases."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import (SIMT_CTAS_PER_SM,
+                                                      decode_attention,
+                                                      decode_attention_plain,
+                                                      plan_chunks, uses_mma)
 
     g = torch.Generator(device=dev).manual_seed(2)
     h, hkv, d = 32, 2, 128                        # chatglm3-6b
     rec = {"cases": {}, "max_abs_err": 0.0, "tolerance": DECODE_TOL}
 
-    def inputs(b, s, dt=torch.bfloat16, heads=hkv):
-        return (torch.randn(b, h, d, device=dev, generator=g).to(dt),
+    def inputs(b, s, dt=torch.bfloat16, heads=hkv, q_heads=h):
+        return (torch.randn(b, q_heads, d, device=dev, generator=g).to(dt),
                 torch.randn(b, s, heads, d, device=dev, generator=g).to(dt),
                 torch.randn(b, s, heads, d, device=dev, generator=g).to(dt))
 
@@ -634,7 +702,10 @@ def check_decode_attention(dev, timer) -> dict:
                 "bound_ms": bms, "bound_by": by,
                 "kernel_device_us": own_kernel_us(device_times(
                     lambda: decode_attention(q, k, v, clen), 20),
-                    ("decode_chunk_kernel", "decode_combine_kernel"))}
+                    DECODE_KERNELS),
+                "plan": plan_chunks(
+                    b * hkv, n, _build.sm_count(dev) * (1 if uses_mma(
+                        k.dtype, d, h // hkv) else SIMT_CTAS_PER_SM))}
 
     s_rag = RAG_PROMPT + RAG_GEN
     q, k, v = inputs(RAG_BATCH, s_rag)
@@ -643,6 +714,12 @@ def check_decode_attention(dev, timer) -> dict:
     case("RAG, cache_len as a device tensor", q, k, v,
          torch.tensor(s_rag - 1000, device=dev))
     rec["rag"] = timing(q, k, v, s_rag - 1)
+    # the other dense configs' groups at the RAG batch and length
+    for name, qh, kvh in (("G=4 (phi3-medium-14b: 40/10)", 40, 10),
+                          ("G=9 (starcoder2-7b: 36/4)", 36, 4)):
+        q, k, v = inputs(RAG_BATCH, s_rag, heads=kvh, q_heads=qh)
+        case(f"RAG {name} cache_len={s_rag - 1}", q, k, v, s_rag - 1)
+        case(f"RAG {name} cache_len={RAG_PROMPT}", q, k, v, RAG_PROMPT)
     for name, b, s in (("decode_32k", 128, 32768), ("long_500k", 1, 524288)):
         q, k, v = inputs(b, s)
         case(f"{name} cache_len=S-1", q, k, v, s - 1)
@@ -1135,7 +1212,7 @@ def rag_path(dev, world, service, index, counters) -> dict:
         "device_idle_share": 1.0 - busy / wall_us,
         "launches_per_step": sum(counts.values()) / RAG_GEN,
         "decode_attention_us_per_step": own_kernel_us(
-            times, ("decode_chunk_kernel", "decode_combine_kernel"))
+            times, DECODE_KERNELS)
         / RAG_GEN,
         "top_kernels_us_per_step": {k[:90]: v / RAG_GEN for k, v in top}}
 
@@ -1209,10 +1286,21 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s: "
         f"{sorted(p.name for p in paths.values())}")
-    for name, out in _build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_summary(out)
+             for name, out in _build.build_log.items()}
+    for name, fns in ptxas.items():
+        log(f"  {name} (ptxas -v): " + "; ".join(
+            f"{fn} {r.get('registers')} regs, {r.get('smem', 0)} B static "
+            f"smem, {r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B "
+            f"spill st/ld" for fn, r in fns.items()))
+    dyn_smem = {
+        "decode_attn_mma_kernel<128,1> (chatglm3-6b, G=16)": _build.library(
+            "decode_attention").has_decode_attention_smem(128, 16, 1, 1),
+        "decode_attn_mma_kernel<128,2> (G=17-32)": _build.library(
+            "decode_attention").has_decode_attention_smem(128, 32, 1, 1),
+        **{f"topk_scan_kernel tile {t} (k={K})": _build.library(
+            "topk_search").has_topk_search_smem(t, K) for t in range(3)}}
+    log(f"  dynamic shared memory per block (bytes): {json.dumps(dyn_smem)}")
 
     # phase 3: kernels against their plain versions
     timer = Timer(dev)
@@ -1351,6 +1439,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "tf32": tf32, "build_s": build_s, "build_log": _build.build_log,
+         "ptxas": ptxas, "dynamic_smem": dyn_smem,
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
          "main_path": info, "hybrid_path": hyb, "rag_path": rag,
          "embedding_bag_path": bag_path,

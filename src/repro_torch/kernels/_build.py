@@ -14,6 +14,7 @@ A missing ``nvcc`` or a failed build raises.  Every C entry point returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,9 +40,8 @@ _F = ctypes.c_float
 # scalars c_float
 SIGNATURES = {
     "topk_search": {
-        "has_topk_search": [_P] * 7 + [_I] * 5 + [_P],
-        "has_topk_merge": [_P] * 3 + [_I] * 3 + [_P] * 4,
-        "has_topk_rows_per_block": [],
+        "has_topk_search": [_P] * 9 + [_I] * 6 + [_P],
+        "has_topk_search_smem": [_I] * 2,
     },
     "ivf_scan": {
         "has_ivf_scan": [_P] * 7 + [_I] * 7 + [_P],
@@ -59,8 +59,9 @@ SIGNATURES = {
         "has_fused_rerank": [_P] * 5 + [_I] * 4 + [_F, _I, _F, _P],
     },
     "decode_attention": {
-        "has_decode_attention": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7
+        "has_decode_attention": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 9
                                 + [_F, _I, _I, _P],
+        "has_decode_attention_smem": [_I] * 4,
     },
     "embedding_bag": {
         "has_embedding_bag": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
@@ -138,6 +139,12 @@ def library(name: str) -> ctypes.CDLL:
 def ptr(t: torch.Tensor | None):
     """Device pointer of a contiguous tensor (None for an absent operand)."""
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

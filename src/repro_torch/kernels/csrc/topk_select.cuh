@@ -1,11 +1,11 @@
-// Warp-level top-k selection and the candidate merge shared by
-// topk_search.cu and ivf_scan.cu.
+// Warp-level top-k selection and the candidate merge of ivf_scan.cu; the
+// order key below is shared with topk_search.cu (which has its own merge).
 //
-// On the TPU both kernels carry one running top-k across sequential grid
-// steps.  Blocks on Hopper run in parallel and share nothing, so both
-// kernels here work in two passes: pass 1 writes a top-k per (query,
-// chunk) or (query, probed bucket); pass 2 (topk_merge_kernel below)
-// reduces each query's candidates to its final top-k.
+// On the TPU the kernel carries one running top-k across sequential grid
+// steps.  Blocks on Hopper run in parallel and share nothing, so
+// ivf_scan.cu works in two passes: pass 1 writes a top-k per (query,
+// probed bucket); pass 2 (topk_merge_kernel below) reduces each query's
+// candidates to its final top-k.
 //
 // Order key everywhere: score descending, then a tie key ascending (the
 // lower corpus row, or the earlier flat probe position), the rule of

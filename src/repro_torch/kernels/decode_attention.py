@@ -10,23 +10,31 @@ f32.  It returns f32 ``[B,H,D]``.  With ``Hkv == H`` this is the TPU
 kernel's signature, whose cache is already head-repeated; the serving path
 keeps the cache in its GQA layout.
 
-On a CUDA tensor it launches the kernel of ``csrc/decode_attention.cu``
-(one block per (chunk of S, KV head, batch row), then a combine over the
-chunks) and raises if that fails; on a CPU tensor it runs
-:func:`decode_attention_plain`.  ``decode_attention.launches`` counts the
-kernel's launches (one per call).
+On a CUDA tensor it launches one kernel of ``csrc/decode_attention.cu``
+(bf16 with D in 64/128/256: tensor cores over a cp.async ring; otherwise
+the SIMT kernel), one CTA per (chunk of S, KV head, batch row), the chunks
+merged inside the same launch, and raises if that fails; on a CPU tensor it
+runs :func:`decode_attention_plain`.  ``decode_attention.launches`` counts
+the kernel's launches (one per call).
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-TILE = 32              # positions per staged tile; chunks are multiples
-MIN_CHUNK = 2 * TILE
-BLOCKS_PER_SM = 4      # chunk the sequence until about this many blocks
+TILE = 64              # positions per pipeline stage of the MMA kernel
+CHUNK_ALIGN = 16       # chunks are whole warp steps of 16 positions
+CHUNK_OVERHEAD = 2     # a chunk's prologue and merge, in tiles
+SINGLE_LEVEL = 16      # up to this many chunks merge in one level
+MAX_CHUNKS = 1024      # two levels of at most 32 partials
 MAX_GROUP = 32         # query heads per KV head
 MAX_D = 256
+MMA_D = (64, 128, 256)
+SIMT_CTAS_PER_SM = 4   # the SIMT kernel's blocks are small
 
 
 def _group(q: torch.Tensor, k_cache: torch.Tensor,
@@ -60,17 +68,58 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, d)
 
 
-def _chunking(rows: int, n: int, n_sm: int) -> tuple[int, int]:
-    """(chunk, n_chunks) covering ``n`` positions for ``rows`` = B * Hkv
-    blocks per chunk index: chunks of at least MIN_CHUNK positions, a
-    multiple of TILE, and about BLOCKS_PER_SM blocks per SM in all."""
-    want = _cdiv(BLOCKS_PER_SM * n_sm, rows)
-    chunk = max(MIN_CHUNK, _cdiv(_cdiv(n, want), TILE) * TILE)
-    return chunk, _cdiv(n, chunk)
+def uses_mma(dtype: torch.dtype, d: int, g: int) -> bool:
+    """Whether the tensor-core kernel takes this shape (bf16, D in MMA_D,
+    G <= 32 query heads per KV head, G <= 16 at D = 256)."""
+    return (dtype == torch.bfloat16 and d in MMA_D and g <= MAX_GROUP
+            and (g <= 16 or d <= 128))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_chunks(rows: int, covered: int, slots: int) -> tuple[int, int, int]:
+    """(chunk, n_chunks, group) for ``rows`` = B * Hkv sequences of
+    ``covered`` positions on ``slots`` resident CTAs.
+
+    Chunks are whole CHUNK_ALIGNs; the count minimizes waves x (TILEs per
+    chunk + CHUNK_OVERHEAD), fewer chunks on a tie.  The partials of more
+    than SINGLE_LEVEL chunks merge in groups of ``group`` (~sqrt), else in
+    one level (``group`` = n_chunks)."""
+    best = None
+    for nc in range(1, min(_cdiv(covered, CHUNK_ALIGN), MAX_CHUNKS) + 1):
+        chunk = _cdiv(_cdiv(covered, nc), CHUNK_ALIGN) * CHUNK_ALIGN
+        if _cdiv(covered, chunk) != nc:       # the same cut as fewer chunks
+            continue
+        cost = _cdiv(rows * nc, slots) * (chunk / TILE + CHUNK_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, nc, chunk)
+    _, nc, chunk = best
+    group = nc if nc <= SINGLE_LEVEL else math.isqrt(nc - 1) + 1
+    return chunk, nc, group
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# (device index, stream) -> [buffer, ticket words, partial words]; the
+# ticket words at the front are zero between calls (the kernel resets them)
+_scratch: dict[tuple[int, int], list] = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, tickets: int,
+                 partials: int) -> tuple[int, int]:
+    """Device pointers (tickets, partials) into one cached buffer, grown
+    when a call needs more; the partial words follow the ticket words."""
+    key = (dev.index, stream)
+    ent = _scratch.get(key)
+    if ent is None or ent[1] < tickets or ent[2] < partials:
+        t = max(tickets, ent[1] if ent else 0)
+        p = max(partials, ent[2] if ent else 0)
+        buf = torch.empty(t + p, dtype=torch.float32, device=dev)
+        buf[:t].zero_()
+        ent = _scratch[key] = [buf, t, p]
+    base = ent[0].data_ptr()
+    return base, base + 4 * ent[1]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -97,35 +146,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b > 65535 or hkv > 65535:
         raise ValueError("decode_attention: B and Hkv <= 65535")
     dev = _build.check_operands("decode_attention", q, k_cache, v_cache)
-    for t in (q, k_cache, v_cache):
-        if t.data_ptr() % 16:
-            raise ValueError("decode_attention: operands must be 16-byte "
-                             "aligned")
+    if (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError("decode_attention: operands must be 16-byte "
+                         "aligned")
     if isinstance(cache_len, torch.Tensor):
         if cache_len.dim() != 0 or cache_len.device != dev or \
                 cache_len.is_floating_point():
             raise ValueError("decode_attention: cache_len must be a host int "
                              "or a 0-d integer tensor on the operands' "
                              "device")
-        len_t, len_host, covered = cache_len.to(torch.int32), 0, s
+        if cache_len.dtype not in (torch.int32, torch.int64):
+            cache_len = cache_len.to(torch.int32)
+        len_t, len_host, covered = cache_len, 0, s
     else:
-        len_t, len_host = None, int(cache_len)
+        len_t, len_host = None, min(int(cache_len), s)
         covered = min(max(len_host + 1, 0), s)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     if covered == 0 or b == 0:
         return out.zero_()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk, nc = _chunking(b * hkv, covered, n_sm)
-    part_m = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, nc, d), dtype=torch.float32, device=dev)
-    gmax = 1 << (g - 1).bit_length()
+    mma = uses_mma(dt, d, g)
+    slots = _build.sm_count(dev) * (1 if mma else SIMT_CTAS_PER_SM)
+    chunk, nc, group = plan_chunks(b * hkv, covered, slots)
+    stream = _build.stream(dev)
+    n_groups = _cdiv(nc, group)
+    tstride = 1 + n_groups
+    if nc > 1:
+        parts = b * hkv * (nc + n_groups) * g
+        ml_words = _cdiv(2 * parts, 4) * 4    # acc starts 16-byte aligned
+        tix, ml = _scratch_for(dev, stream, _cdiv(b * hkv * tstride, 4) * 4,
+                               ml_words + parts * d)
+        acc = ml + 4 * ml_words
+    else:
+        tix = ml = acc = None
     lib = _build.library("decode_attention")
     _build.check(lib.has_decode_attention(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
-        _build.ptr(len_t), len_host, _build.ptr(part_m), _build.ptr(part_l),
-        _build.ptr(part_acc), _build.ptr(out), b, h, hkv, s, d, chunk, nc,
-        d ** -0.5, gmax, int(dt == torch.bfloat16), _build.stream(dev)),
+        _build.ptr(len_t), int(len_t is not None and
+                               len_t.dtype == torch.int64), len_host,
+        tix, ml, acc, _build.ptr(out), b, h, hkv, s, d, chunk, nc, group,
+        tstride, d ** -0.5, int(dt == torch.bfloat16), int(mma), stream),
         "decode_attention")
     decode_attention.launches += 1
     return out

@@ -24,18 +24,51 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.topk_search import (MAX_K, MERGE_WIDTH,
-                                             merge_candidates)
+from repro_torch.kernels.topk_search import MAX_K
 from repro_torch.utils import stable_topk
+
+# widest candidate row one merge warp holds in shared memory; wider rows
+# merge in rounds
+MERGE_WIDTH = 4096
 
 
 def _row_splits(dev, b: int, p: int, cap: int, k: int) -> int:
     """Row ranges per probed bucket, one block each: about four blocks per
     SM for the batch, ranges of at least 32 rows, and each query's P*S*k
     candidates within one merge row."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev)
     want = -(-4 * sms // (b * p))
     return max(1, min(want, -(-cap // 32), MERGE_WIDTH // (p * k)))
+
+
+def merge_candidates(fn, vals, keys, pay, k: int):
+    """Pass 2 on the card: [B, m] candidates -> [B, k] (vals, keys, pay).
+
+    ``fn`` is the C merge entry ``has_ivf_merge``.
+    Order: vals descending, then keys ascending.
+    """
+    b, m = vals.shape
+    dev = vals.device
+    while True:
+        g = -(-m // MERGE_WIDTH)
+        width = -(-m // g)
+        pad = g * width - m
+        if pad:
+            vals = torch.cat([vals, vals.new_full((b, pad), -torch.inf)], 1)
+            keys = torch.cat([keys, keys.new_full((b, pad), -1)], 1)
+            pay = torch.cat([pay, pay.new_full((b, pad), -1)], 1)
+        rows = b * g
+        out_v = torch.empty((rows, k), dtype=torch.float32, device=dev)
+        out_k = torch.empty((rows, k), dtype=torch.int32, device=dev)
+        out_p = torch.empty((rows, k), dtype=torch.int32, device=dev)
+        _build.check(fn(_build.ptr(vals), _build.ptr(keys), _build.ptr(pay),
+                        rows, width, k, _build.ptr(out_v), _build.ptr(out_k),
+                        _build.ptr(out_p), _build.stream(dev)),
+                     "top-k merge")
+        if g == 1:
+            return out_v, out_k, out_p
+        vals, keys, pay = (t.reshape(b, g * k) for t in (out_v, out_k, out_p))
+        m = g * k
 
 
 def _check_scaled(bucket_scales, probe_bias) -> bool:

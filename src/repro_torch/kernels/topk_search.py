@@ -2,10 +2,11 @@
 
 ``topk_search`` replaces the Pallas kernel
 ``src/repro/kernels/topk_search.py::_topk_kernel``.  On a CUDA tensor it
-launches the hand-written kernel of ``csrc/topk_search.cu`` (pass 1: a
-top-k per 256-row chunk; pass 2: the candidate merge) and raises if that
-fails; on a CPU tensor it runs :func:`topk_search_plain`.  The two agree on
-the tie rule: score descending, then the lower corpus row.
+launches the hand-written kernels of ``csrc/topk_search.cu`` (a persistent
+scan that keeps a running top-k per query and block, then a block-wide
+merge of those lists) and raises if that fails; on a CPU tensor it runs
+:func:`topk_search_plain`.  The two agree on the tie rule: score
+descending, then the lower corpus row.
 
 ``topk_search.launches`` counts the kernel's launches (one per call).
 """
@@ -16,10 +17,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.utils import stable_topk
 
-# widest candidate row one merge warp holds in shared memory; wider rows
-# merge in rounds
-MERGE_WIDTH = 4096
 MAX_K = 1024
+# the scan's query tiles: (queries, rows per tile) of kernel tile 0, 1, 2
+SCAN_TILES = ((1, 256), (8, 256), (64, 128))
+WIDE_TILE_MAX_K = 64       # tile 2 keeps 64 lists of k in shared memory
+MAX_LISTS = 256            # blocks per query tile: one merge warp per 32
 
 
 def _check_groups(row_group, q_group) -> bool:
@@ -49,34 +51,16 @@ def topk_search_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return vals, torch.where(torch.isfinite(vals), pos, -1).to(torch.int32)
 
 
-def merge_candidates(fn, vals, keys, pay, k: int):
-    """Pass 2 on the card: [B, m] candidates -> [B, k] (vals, keys, pay).
-
-    ``fn`` is a C merge entry (``has_topk_merge`` / ``has_ivf_merge``).
-    Order: vals descending, then keys ascending.
-    """
-    b, m = vals.shape
-    dev = vals.device
-    while True:
-        g = -(-m // MERGE_WIDTH)
-        width = -(-m // g)
-        pad = g * width - m
-        if pad:
-            vals = torch.cat([vals, vals.new_full((b, pad), -torch.inf)], 1)
-            keys = torch.cat([keys, keys.new_full((b, pad), -1)], 1)
-            pay = torch.cat([pay, pay.new_full((b, pad), -1)], 1)
-        rows = b * g
-        out_v = torch.empty((rows, k), dtype=torch.float32, device=dev)
-        out_k = torch.empty((rows, k), dtype=torch.int32, device=dev)
-        out_p = torch.empty((rows, k), dtype=torch.int32, device=dev)
-        _build.check(fn(_build.ptr(vals), _build.ptr(keys), _build.ptr(pay),
-                        rows, width, k, _build.ptr(out_v), _build.ptr(out_k),
-                        _build.ptr(out_p), _build.stream(dev)),
-                     "top-k merge")
-        if g == 1:
-            return out_v, out_k, out_p
-        vals, keys, pay = (t.reshape(b, g * k) for t in (out_v, out_k, out_p))
-        m = g * k
+def plan_scan(b: int, n: int, k: int, n_sm: int) -> tuple[int, int, int]:
+    """(tile, grid_x, query tiles) of the scan: tile 0 for one query, 1 for
+    up to 8 or for k > WIDE_TILE_MAX_K, else 2 (64 queries); about one
+    block per SM in all, block j of a query tile scanning rows
+    [j * n // grid_x, (j + 1) * n // grid_x)."""
+    tile = 0 if b == 1 else 1 if b <= 8 or k > WIDE_TILE_MAX_K else 2
+    qb, rows = SCAN_TILES[tile]
+    q_tiles = -(-b // qb)
+    grid_x = max(1, min(-(-n // rows), -(-n_sm // q_tiles), MAX_LISTS))
+    return tile, grid_x, q_tiles
 
 
 def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -96,6 +80,14 @@ def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
     q = queries.float().contiguous()
     c = corpus.float().contiguous()
+    if d % 4:                       # 16-byte rows for cp.async: zero-pad d
+        pad = 4 - d % 4
+        q = torch.nn.functional.pad(q, (0, pad))
+        c = torch.nn.functional.pad(c, (0, pad))
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if c.data_ptr() % 16:
+        c = c.clone()
     v = (torch.ones(n, dtype=torch.bool, device=q.device) if valid is None
          else valid.bool()).contiguous().view(torch.uint8)
     rg = row_group.to(torch.int32).contiguous() if grouped else None
@@ -108,17 +100,20 @@ def topk_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if b == 0 or n == 0:
         return (torch.full((b, k), -torch.inf, device=dev),
                 torch.full((b, k), -1, dtype=torch.int32, device=dev))
+    tile, grid_x, q_tiles = plan_scan(b, n, k, _build.sm_count(dev))
+    if q_tiles > 65535:
+        raise ValueError(f"topk_search: B={b} is too many queries")
     lib = _build.library("topk_search")
-    n_chunks = -(-n // lib.has_topk_rows_per_block())
-    cand_v = torch.empty((b, n_chunks * k), dtype=torch.float32, device=dev)
-    cand_r = torch.empty((b, n_chunks * k), dtype=torch.int32, device=dev)
+    cand_v = torch.empty((b, grid_x * k), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((b, grid_x * k), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    rows = torch.empty((b, k), dtype=torch.int32, device=dev)
     _build.check(lib.has_topk_search(
         _build.ptr(q), _build.ptr(c), _build.ptr(v), _build.ptr(rg),
-        _build.ptr(qg), _build.ptr(cand_v), _build.ptr(cand_r), b, n, d, k,
-        n_chunks, _build.stream(dev)), "topk_search")
+        _build.ptr(qg), _build.ptr(cand_v), _build.ptr(cand_r),
+        _build.ptr(vals), _build.ptr(rows), b, n, q.shape[1], k, tile,
+        grid_x, _build.stream(dev)), "topk_search")
     topk_search.launches += 1
-    vals, _, rows = merge_candidates(lib.has_topk_merge, cand_v, cand_r,
-                                     cand_r, k)
     return vals, rows
 
 

@@ -76,16 +76,18 @@ def _near_tie_ok(vals_plain, idx_a, idx_b, tol=1e-5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,groups", [(1, 50_000, False), (64, 5000, True),
-                                        (3, 300, False)])
-def test_cuda_topk_search_vs_plain(cuda_dev, b, n, groups):
+@pytest.mark.parametrize("b,n,groups,k", [
+    (1, 50_000, False, 10), (64, 5000, True, 10), (3, 300, False, 10),
+    (65, 50_000, False, 10),                     # a ragged query tile
+    (7, 20_000, True, 100), (64, 50_000, False, 100), (1, 50_000, False, 1)])
+def test_cuda_topk_search_vs_plain(cuda_dev, b, n, groups, k):
     rng = np.random.default_rng(b)
     q, c, valid, rg, qg = _topk_inputs(rng, b, n, 768, 0.9, groups)
     args = [_t(x).to(cuda_dev) for x in (q, c, valid)]
     kw = {} if rg is None else dict(row_group=_t(rg).to(cuda_dev),
                                     q_group=_t(qg).to(cuda_dev))
-    v0, i0 = topk_search_plain(*args[:2], 10, valid=args[2], **kw)
-    v1, i1 = topk_search(*args[:2], 10, valid=args[2], **kw)
+    v0, i0 = topk_search_plain(*args[:2], k, valid=args[2], **kw)
+    v1, i1 = topk_search(*args[:2], k, valid=args[2], **kw)
     torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
     assert _near_tie_ok(v0, i0, i1)
 
@@ -197,6 +199,9 @@ def test_cuda_fused_rerank_vs_plain(cuda_dev, dsim):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv,d,dt,clen", [
     (8, 2112, 32, 2, 128, torch.bfloat16, 2100),     # the RAG shape
+    (8, 2112, 40, 10, 128, torch.bfloat16, 2111),    # G=4 (phi3-medium-14b)
+    (8, 2112, 36, 4, 128, torch.bfloat16, 2048),     # G=9 (starcoder2-7b)
+    (2, 3000, 64, 2, 128, torch.bfloat16, 2999),     # G=32: two MMA tiles
     (1, 4099, 32, 2, 128, torch.bfloat16, 4098),     # S % chunk != 0
     (2, 1000, 8, 8, 64, torch.float32, 999),         # Hkv == H
     (3, 777, 6, 2, 16, torch.float32, 500),          # group of 3

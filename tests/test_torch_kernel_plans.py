@@ -1,0 +1,102 @@
+"""Host-side planning of the redesigned CUDA kernels, on the CPU.
+
+The kernels themselves run only on the card (``test_torch_cuda_kernels.py``);
+how their wrappers cut the work is plain Python and is checked here:
+decode_attention's chunks of the cache and its kernel route, and
+topk_search's query tiles and even row ranges.  Every position,
+row and query must be covered exactly once.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import topk_search as TS
+
+N_SM = 132                                  # an H100 SXM
+
+
+def _decode_chunks(covered, chunk, nc):
+    """[start, end) of each chunk that holds a valid position."""
+    return [(c * chunk, min((c + 1) * chunk, covered)) for c in range(nc)
+            if c * chunk < covered]
+
+
+@pytest.mark.parametrize("b,hkv,covered", [
+    (8, 2, 2112),                 # chatglm3-6b at the RAG shape
+    (8, 4, 2049), (8, 10, 2111),  # starcoder2-7b, phi3-medium-14b groups
+    (1, 2, 524_288), (128, 2, 32_768), (3, 2, 4099), (1, 1, 1),
+    (5, 3, 63), (2, 7, 65), (1, 1, 1_000_003)])
+def test_decode_chunks_cover_positions_once(b, hkv, covered):
+    for mma in (True, False):
+        slots = N_SM * (1 if mma else DA.SIMT_CTAS_PER_SM)
+        chunk, nc, group = DA.plan_chunks(b * hkv, covered, slots)
+        assert chunk % DA.CHUNK_ALIGN == 0 and 1 <= nc <= DA.MAX_CHUNKS
+        spans = _decode_chunks(covered, chunk, nc)
+        assert len(spans) == nc                 # no chunk is wholly empty
+        seen = torch.zeros(covered, dtype=torch.int32)
+        for lo, hi in spans:
+            seen[lo:hi] += 1
+        assert bool((seen == 1).all())
+        # the merge: groups of `group` chunks, at most 32 partials at once
+        n_groups = -(-nc // group)
+        assert group <= 32 and n_groups <= 32
+        assert (nc <= DA.SINGLE_LEVEL) == (n_groups == 1)
+        members = [min(group, nc - j * group) for j in range(n_groups)]
+        assert sum(members) == nc and min(members) >= 1
+
+
+@pytest.mark.parametrize("cache_len", [0, 1, 700, 2047, 2111])
+def test_decode_chunks_cut_by_cache_len(cache_len):
+    """A device-tensor cache_len plans for all of S: the chunks that hold
+    positions <= cache_len are a prefix, and cover them once."""
+    s = 2112
+    chunk, nc, _ = DA.plan_chunks(16, s, N_SM)
+    used = -(-(cache_len + 1) // chunk)
+    spans = _decode_chunks(cache_len + 1, chunk, nc)
+    assert len(spans) == used and spans[-1][1] == cache_len + 1
+
+
+def test_decode_rag_shape_fills_the_card_once():
+    """16 (b, kvh) rows x 2112 positions: one wave of CTAs with a few
+    64-position tiles each, not 528 blocks of two tiles."""
+    chunk, nc, group = DA.plan_chunks(16, 2112, N_SM)
+    assert 16 * nc <= N_SM and chunk <= 8 * DA.TILE and group == nc
+    _, nc32, _ = DA.plan_chunks(256, 32_768, N_SM)
+    assert nc32 == 1                            # no merge at decode_32k
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 9, 16, 17, 32])
+def test_decode_mma_route(g):
+    """Which (dtype, D, G) the tensor-core kernel takes; the rest go to the
+    SIMT kernel."""
+    assert DA.uses_mma(torch.bfloat16, 128, g)
+    assert DA.uses_mma(torch.bfloat16, 256, g) == (g <= 16)
+    assert not DA.uses_mma(torch.float32, 128, g)
+    assert not DA.uses_mma(torch.bfloat16, 96, g)
+
+
+@pytest.mark.parametrize("b", [1, 7, 9, 64, 65, 200])
+@pytest.mark.parametrize("n", [1, 300, 50_000, 50_001])
+@pytest.mark.parametrize("k", [1, 10, 100, 1024])
+def test_topk_scan_covers_rows_and_queries_once(b, n, k):
+    tile, grid_x, q_tiles = TS.plan_scan(b, n, k, N_SM)
+    qb, rows = TS.SCAN_TILES[tile]
+    assert (q_tiles - 1) * qb < b <= q_tiles * qb
+    if k > TS.WIDE_TILE_MAX_K:
+        assert qb <= 8
+    if b == 1:
+        assert qb == 1
+    n_tiles = -(-n // rows)
+    assert 1 <= grid_x <= min(n_tiles, TS.MAX_LISTS)
+    # block j scans rows [j * n // grid_x, (j + 1) * n // grid_x), in
+    # tiles of `rows`: each corpus row once, shares within one row
+    spans = [(j * n // grid_x, (j + 1) * n // grid_x) for j in range(grid_x)]
+    seen = torch.zeros(n, dtype=torch.int32)
+    for lo, hi in spans:
+        seen[lo:hi] += 1
+    assert bool((seen == 1).all())
+    sizes = [hi - lo for lo, hi in spans]
+    assert max(sizes) - min(sizes) <= 1
+    # about one block per SM in all, so each query keeps grid_x * k
+    # candidates for the merge (~1,300 at B=1, k=10)
+    assert grid_x * q_tiles <= N_SM + q_tiles

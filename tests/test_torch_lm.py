@@ -87,7 +87,8 @@ def test_decode_attention_plain_vs_reference(b, h, d, s, blk, clen, dt):
                                    atol=tol)
 
 
-@pytest.mark.parametrize("h,hkv,clen", [(32, 2, 70), (8, 1, 0), (6, 2, 99)])
+@pytest.mark.parametrize("h,hkv,clen", [(32, 2, 70), (8, 1, 0), (6, 2, 99),
+                                        (40, 10, 64), (36, 4, 99)])
 def test_decode_attention_gqa_vs_repeat_kv(h, hkv, clen):
     """The cache in GQA layout == the reference's oracle over the cache
     repeated to the query heads (``layers._repeat_kv``)."""
