@@ -11,15 +11,18 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    (one process per source, in parallel);
 3. hold each of the eight kernels against its plain PyTorch version at the
    main-path shapes (B=1 and B=64, topk_search also at B=7 and B=65 and at
-   k=1 and k=100; decode attention at the RAG shape for chatglm3-6b's
-   G=16 and the G=4 and G=9 of the other dense configs, decode_32k and
-   long_500k; the EmbeddingBag at the deepfm and dlrm-rm2 Criteo tables,
-   B=512) and at edge cases; time kernel, plain version, library call and
-   the bound; print ptxas's registers and spills per kernel and the
-   dynamic shared memory of the redesigned ones; then the tables' lookup
-   path: fresh B=512
-   batches through ``embedding_bag_op`` with its count set to 0 before;
-   the tables are freed before the world is built;
+   k=1 and k=100; ivf_scan in both modes also at B=7 and 65, k=1 and
+   MAX_K, P=1 and 512, a pool smaller than k, all-pad pools, clamped
+   probes, a tie between two probes, d=770, 200 calls back to back and
+   two streams, one launch per call; decode attention at the RAG shape
+   for chatglm3-6b's G=16 and the G=4 and G=9 of the other dense configs,
+   decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
+   Criteo tables, B=512) and at edge cases; time kernel, plain version,
+   library call and the bound; print ptxas's registers and spills per
+   kernel and the dynamic shared memory of the redesigned ones; then the
+   tables' lookup path: fresh B=512 batches through ``embedding_bag_op``
+   with its count set to 0 before; the tables are freed before the world
+   is built;
 4. Algorithm 1 (``FullRetrievalEngine`` on 400 queries, ``HasEngine`` on
    1500) at d=768, h_max=5000, doc_cap=50,000, 8192 IVF buckets / nprobe
    64, over 500,000 synthetic passages (100,000 entities); the launch
@@ -85,6 +88,8 @@ DECODE_TOL = 2e-5              # f32 softmax sums in another order (rtol+atol)
 # the hand-written kernels' names, for the profiler's device times
 TOPK_KERNELS = ("topk_scan_kernel", "topk_block_merge_kernel")
 DECODE_KERNELS = ("decode_attn_mma_kernel", "decode_attn_simt_kernel")
+IVF_KERNELS = ("ivf_range_kernel",)
+IVF_BACK_TO_BACK = 200         # calls on one stream, then the tickets read 0
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -195,7 +200,8 @@ def kernel_name(mangled: str) -> str:
     args = []
     if rest.startswith("I"):
         args = ["".join(a) for a in re.findall(
-            r"Li(\d+)E|(bfloat16)|I(f)(?=L)", rest[:rest.find("EE") + 1])]
+            r"Li(\d+)E|(bfloat16)|I(f)(?=L)|LN\w*?E(\d+)E",
+            rest[:rest.find("EE") + 1])]
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -260,10 +266,178 @@ def compare_topk(what, kv, ki, pv, pi, score_of) -> tuple[float, int]:
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def ivf_check(rec, name, q, probe, vecs, ids, k, scales=None, bias=None):
+    """ivf_scan against ivf_scan_plain in either mode (int8 when ``scales``
+    and ``bias`` are given).  The kernel clamps an out-of-range probe; the
+    plain version is given the clamped probe.  Returns the kernel's ids."""
+    from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+
+    n_b, cap = ids.shape
+    kv, ki = ivf_scan(q, probe, vecs, ids, k, scales, bias)
+    probe = probe.clamp(0, n_b - 1)
+    pv, pi = ivf_scan_plain(q, probe, vecs, ids, k, scales, bias)
+    h = q.shape[1] // 2
+    flat_ids = ids.view(-1)
+
+    def score_of(r, gid):               # global ids are unique here
+        slot = int((flat_ids == gid).nonzero()[0, 0])
+        c, s_ = divmod(slot, cap)
+        at = (probe[r] == c).nonzero()
+        if not len(at):
+            return -float("inf")        # not in a probed bucket
+        v = vecs[c, s_].float()
+        if scales is None:
+            return float(q[r] @ v)
+        return float((q[r, :h] @ v[:h]) * scales[c, s_, 0]
+                     + (q[r, h:] @ v[h:]) * scales[c, s_, 1]
+                     + bias[r, int(at[0, 0])])
+
+    err, sw = compare_topk(f"{rec['name']}/{name}", kv, ki, pv, pi, score_of)
+    rec["cases"][name] = {"max_abs_err": err, "swaps": sw}
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["swaps"] += sw
+    return ki
+
+
+def ivf_device_us(call) -> float:
+    """Device time (us) of one ivf_scan call, from the profiler, which must
+    see one kernel launch per call and nothing else: the merge runs in the
+    same launch, and no scratch is allocated or cleared."""
+    counts = {}
+    times = device_times(call, 20, counts=counts)
+    if set(counts) != {k for k in counts if IVF_KERNELS[0] in k} or \
+            sum(counts.values()) != 1:
+        raise AssertionError(f"ivf_scan: launches per call {counts}")
+    return own_kernel_us(times, IVF_KERNELS)
+
+
+def ivf_edge_cases(dev, g, rec, scaled: bool):
+    """ivf_scan's one-launch merge against the plain version in one mode:
+    B = 1, 7, 64, 65; k = 1, 10, MAX_K; P = 1, 64, 512; a pool smaller than
+    k; every probed slot a pad; out-of-range probes; equal vectors in two
+    probed buckets (the tie goes to the earlier probe); d = 770 (the
+    scalar loads) beside d = 768; back-to-back calls on one stream (the
+    tickets read zero after) and calls on two streams."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan import ivf_scan
+    from repro_torch.kernels.topk_search import MAX_K
+
+    def world(n_b, cap, d):
+        ids = torch.randperm(n_b * cap, device=dev, generator=g) \
+            .int().reshape(n_b, cap)
+        ids[torch.rand(n_b, cap, device=dev, generator=g) < 0.3] = -1
+        if not scaled:
+            v = torch.randn(n_b, cap, d, device=dev, generator=g)
+            v = v / v.norm(dim=-1, keepdim=True)
+            return v, ids, None
+        v = torch.randint(-127, 128, (n_b, cap, d), dtype=torch.int8,
+                          device=dev, generator=g)
+        sc = torch.rand(n_b, cap, 2, device=dev, generator=g) * 1e-3 + 1e-4
+        return v, ids, sc
+
+    def queries(b, d):
+        x = torch.randn(b, d, device=dev, generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    def probes(b, p, n_b):
+        return torch.stack([torch.randperm(n_b, device=dev, generator=g)[:p]
+                            for _ in range(b)]).int()
+
+    def bias(b, p):
+        return torch.randn(b, p, device=dev, generator=g) * 0.3 \
+            if scaled else None
+
+    def case(name, q, probe, vecs, ids, sc, k=K, bs=None):
+        bs = bias(*probe.shape) if bs is None and scaled else bs
+        return ivf_check(rec, name, q, probe, vecs, ids, k, sc, bs)
+
+    n_b, cap, d = 1024, 61, 768
+    vecs, ids, sc = world(n_b, cap, d)
+    for b in (1, 7, 64, 65):
+        case(f"edge B={b},P=64,cap={cap}", queries(b, d), probes(b, 64, n_b),
+             vecs, ids, sc)
+    for k in (1, MAX_K):
+        case(f"edge B=7,P=64,k={k}", queries(7, d), probes(7, 64, n_b), vecs,
+             ids, sc, k=k)
+    for p in (1, 512):
+        case(f"edge B=7,P={p}", queries(7, d), probes(7, p, n_b), vecs, ids,
+             sc)
+    case("edge pool < k (P=3, cap 3), k=10", queries(3, d),
+         probes(3, 3, n_b), vecs[:, :3].contiguous(),
+         ids[:, :3].contiguous(), None if sc is None else
+         sc[:, :3].contiguous())
+    pads = ids.clone()
+    pads[:40] = -1
+    got = case("edge every probed slot a pad", queries(4, d),
+               probes(4, 40, 40), vecs, pads, sc)
+    if not (got == -1).all():
+        raise AssertionError(f"{rec['name']}: an all-pad pool gave ids")
+    oob = probes(5, 64, n_b - 2) + 1           # buckets 0 and n_b-1 free
+    oob[:, 3], oob[:, 9] = n_b + 7, -3         # clamped to n_b-1 and 0
+    case("edge out-of-range probes (clamped)", queries(5, d), oob, vecs,
+         ids, sc)
+    # equal vectors in two probed buckets: the earlier probe wins the tie
+    tv, tids = vecs.clone(), ids.clone()
+    pr = probes(2, 16, n_b)
+    early, late = pr[0, 2], pr[0, 11]
+    tv[late, 7] = tv[early, 30]
+    tids[early, 30], tids[late, 7] = 10 ** 8, 10 ** 8 + 1
+    tsc = None
+    if scaled:                                 # the largest scales: top 2
+        tsc = sc.clone()
+        tsc[late, 7] = tsc[early, 30] = 1.1e-3
+    q = tv[early, 30].float()[None].repeat(2, 1)
+    q = q / q.norm(dim=-1, keepdim=True)
+    bs = bias(2, 16)
+    if scaled:
+        bs[:, :] = 0.5                         # the same bias on every probe
+    got = case("edge equal vectors in two probes", q, pr, tv, tids, tsc,
+               bs=bs)
+    if got[0, :2].tolist() != [10 ** 8, 10 ** 8 + 1]:
+        raise AssertionError(f"{rec['name']}: the tie did not go to the "
+                             f"earlier probe: {got[0, :2].tolist()}")
+    del tv, tids, tsc
+    sv, sids, ssc = world(64, 37, 770)
+    case("edge d=770 (scalar loads), B=7,P=16", queries(7, 770),
+         probes(7, 16, 64), sv, sids, ssc)
+    # back to back on one stream, then the tickets
+    q, pr = queries(7, d), probes(7, 64, n_b)
+    bs = bias(7, 64)
+    first = ivf_scan(q, pr, vecs, ids, K, sc, bs)
+    for _ in range(IVF_BACK_TO_BACK - 1):
+        last = ivf_scan(q, pr, vecs, ids, K, sc, bs)
+    torch.cuda.synchronize()
+    if not (torch.equal(first[0], last[0]) and torch.equal(first[1],
+                                                           last[1])):
+        raise AssertionError(f"{rec['name']}: back-to-back calls differ")
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "ivf_scan" and buf[:n_tickets].view(torch.int32).any():
+            raise AssertionError(f"{rec['name']}: tickets not reset")
+    rec["cases"]["edge back-to-back"] = {"calls": IVF_BACK_TO_BACK,
+                                         "tickets_zero": True}
+    # two streams at once, each against the plain version
+    args = [(queries(b, d), probes(b, 64, n_b), bias(b, 64))
+            for b in (3, 65)]
+    streams = [torch.cuda.Stream() for _ in args]
+    outs = []
+    for st, (q, pr, bs) in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(ivf_scan(q, pr, vecs, ids, K, sc, bs))
+    torch.cuda.synchronize()
+    for i, ((q, pr, bs), (kv, ki)) in enumerate(zip(args, outs)):
+        want = ivf_check(rec, f"edge stream {i}", q, pr, vecs, ids, K, sc,
+                         bs)
+        if not torch.equal(want, ki):
+            raise AssertionError(f"{rec['name']}: stream {i} differs")
+
+
 def check_kernels(dev, timer) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.homology_score import (homology_score,
                                                     homology_score_plain)
-    from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+    from repro_torch.kernels.ivf_scan import (ivf_scan, ivf_scan_plain,
+                                              plan_ranges)
     from repro_torch.kernels.topk_search import (topk_search,
                                                  topk_search_plain)
 
@@ -321,7 +495,8 @@ def check_kernels(dev, timer) -> dict:
     del ring
 
     # -- ivf_scan: the fuzzy channel's probed-bucket scan ------------------
-    rec = res["ivf_scan"] = {"cases": {}, "max_abs_err": 0.0, "swaps": 0}
+    rec = res["ivf_scan"] = {"name": "ivf_scan", "cases": {},
+                             "max_abs_err": 0.0, "swaps": 0}
     n_b, cap = 8192, 123
     bvecs = unit(n_b, cap)
     bids = torch.randperm(n_b * cap, device=dev, generator=g) \
@@ -334,30 +509,17 @@ def check_kernels(dev, timer) -> dict:
         return torch.stack([torch.randperm(n_b, device=dev, generator=g)[:p]
                             for _ in range(b)]).int()
 
-    def ivf_case(name, q, probe, vecs, ids):
-        kv, ki = ivf_scan(q, probe, vecs, ids, K)
-        pv, pi = ivf_scan_plain(q, probe, vecs, ids, K)
-
-        def score_of(r, gid):               # global ids are unique here
-            slot = int((ids.view(-1) == gid).nonzero()[0, 0])
-            if not (probe[r] == slot // ids.shape[1]).any():
-                return -float("inf")        # not in a probed bucket
-            return float(q[r] @ vecs.view(-1, d)[slot])
-
-        err, sw = compare_topk(f"ivf_scan/{name}", kv, ki, pv, pi, score_of)
-        rec["cases"][name] = {"max_abs_err": err, "swaps": sw}
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["swaps"] += sw
-
     pr1, pr64 = probes(1, 64), probes(64, 64)
-    ivf_case("B=1,P=64", q1, pr1, bvecs, bids)
-    ivf_case("B=64,P=64", q64, pr64, bvecs, bids)
-    ivf_case("pool < k (P=1, cap 4)", unit(3), probes(3, 1),
-             bvecs[:, :4].contiguous(), bids[:, :4].contiguous())
+    ivf_check(rec, "B=1,P=64", q1, pr1, bvecs, bids, K)
+    ivf_check(rec, "B=64,P=64", q64, pr64, bvecs, bids, K)
+    ivf_check(rec, "pool < k (P=1, cap 4)", unit(3), probes(3, 1),
+              bvecs[:, :4].contiguous(), bids[:, :4].contiguous(), K)
     for b, q, pr in ((1, q1, pr1), (64, q64, pr64)):
-        uniq = int(torch.unique(pr).numel())
-        n_bytes = q.numel() * 4 + pr.numel() * 4 + uniq * cap * (d + 1) * 4 \
-            + b * K * 8
+        # the probed buckets' ids, and the vectors of their valid slots
+        uniq = torch.unique(pr.long())
+        valid = int((bids[uniq] >= 0).sum())
+        n_bytes = q.numel() * 4 + pr.numel() * 4 + uniq.numel() * cap * 4 \
+            + valid * d * 4 + b * K * 8
         bms, by = bound(n_bytes, 2 * b * pr.shape[1] * cap * d)
 
         def library(q=q, pr=pr):
@@ -370,10 +532,12 @@ def check_kernels(dev, timer) -> dict:
             "plain_ms": timer(lambda: ivf_scan_plain(q, pr, bvecs, bids, K)),
             "library_ms": timer(library),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: ivf_scan(q, pr, bvecs, bids, K), 20),
-                ("ivf_bucket_kernel", "topk_merge_kernel"))}
+            "kernel_device_us": ivf_device_us(
+                lambda: ivf_scan(q, pr, bvecs, bids, K)),
+            "ranges": plan_ranges(b, pr.shape[1], cap, K,
+                                  _build.sm_count(dev))}
     del bvecs, bids
+    ivf_edge_cases(dev, g, rec, scaled=False)
 
     # -- homology_score: validation against the query cache ---------------
     rec = res["homology_score"] = {"cases": {}, "max_abs_err": 0.0}
@@ -429,7 +593,9 @@ def check_hybrid_kernels(dev, timer) -> dict:
                                                   fused_rerank_plain,
                                                   fused_scores,
                                                   fused_scores_plain)
-    from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan import (ivf_scan, ivf_scan_plain,
+                                              plan_ranges)
     from repro_torch.kernels.lexical_score import (lexical_score,
                                                    lexical_score_plain)
     from repro_torch.retrieval.lexical import build_doc_terms, query_terms
@@ -444,8 +610,8 @@ def check_hybrid_kernels(dev, timer) -> dict:
         return x / x.norm(dim=-1, keepdim=True)
 
     # -- ivf_scan, int8 residual codes: the cloud stage's dense channel -----
-    rec = res["ivf_scan_int8"] = {"cases": {}, "max_abs_err": 0.0,
-                                  "swaps": 0}
+    rec = res["ivf_scan_int8"] = {"name": "ivf_scan_int8", "cases": {},
+                                  "max_abs_err": 0.0, "swaps": 0}
     n_b, cap, p_ = 1024, ANN_CAP, 32
     codes = torch.randint(-127, 128, (n_b, cap, d), dtype=torch.int8,
                           device=dev, generator=g)
@@ -461,44 +627,26 @@ def check_hybrid_kernels(dev, timer) -> dict:
         return torch.stack([torch.randperm(n_b, device=dev, generator=g)[:p]
                             for _ in range(b)]).int()
 
-    def i8_case(name, q, probe, cd, sc, ids, bias):
-        kv, ki = ivf_scan(q, probe, cd, ids, K, sc, bias)
-        pv, pi = ivf_scan_plain(q, probe, cd, ids, K, sc, bias)
-
-        def score_of(r, gid):               # global ids are unique here
-            slot = int((ids.view(-1) == gid).nonzero()[0, 0])
-            c, s_ = divmod(slot, ids.shape[1])
-            at = (probe[r] == c).nonzero()
-            if not len(at):
-                return -float("inf")        # not in a probed bucket
-            v = cd[c, s_].float()
-            return float((q[r, :h] @ v[:h]) * sc[c, s_, 0]
-                         + (q[r, h:] @ v[h:]) * sc[c, s_, 1]
-                         + bias[r, int(at[0, 0])])
-
-        err, sw = compare_topk(f"ivf_scan_int8/{name}", kv, ki, pv, pi,
-                               score_of)
-        rec["cases"][name] = {"max_abs_err": err, "swaps": sw}
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["swaps"] += sw
-
     q1, q64 = unit(1), unit(64)
     pr1, pr64 = probes(1, p_), probes(64, p_)
     b1, b64 = (torch.randn(b, p_, device=dev, generator=g) * 0.3
                for b in (1, 64))
-    i8_case("B=1,P=32", q1, pr1, codes, scales, bids, b1)
-    i8_case("B=64,P=32", q64, pr64, codes, scales, bids, b64)
+    ivf_check(rec, "B=1,P=32", q1, pr1, codes, bids, K, scales, b1)
+    ivf_check(rec, "B=64,P=32", q64, pr64, codes, bids, K, scales, b64)
     pr_edge = pr64[:4].clone()
     pr_edge[:, 0], pr_edge[:, 1] = 3, 4            # all-pad, zero residual
-    i8_case("all-pad bucket + zero residual", q64[:4], pr_edge, codes,
-            scales, bids, b64[:4].contiguous())
-    i8_case("pool < k (P=1, cap 4)", unit(3), probes(3, 1),
-            codes[:, :4].contiguous(), scales[:, :4].contiguous(),
-            bids[:, :4].contiguous(), b64[:3, :1].contiguous())
+    ivf_check(rec, "all-pad bucket + zero residual", q64[:4], pr_edge,
+              codes, bids, K, scales, b64[:4].contiguous())
+    ivf_check(rec, "pool < k (P=1, cap 4)", unit(3), probes(3, 1),
+              codes[:, :4].contiguous(), bids[:, :4].contiguous(), K,
+              scales[:, :4].contiguous(), b64[:3, :1].contiguous())
     for b, q, pr, bias in ((1, q1, pr1, b1), (64, q64, pr64, b64)):
-        uniq = int(torch.unique(pr).numel())
-        n_bytes = q.numel() * 4 + pr.numel() * 8 + uniq * cap * (d + 12) \
-            + b * K * 8
+        # the probed buckets' ids, and the codes and scales of their valid
+        # slots
+        uniq = torch.unique(pr.long())
+        valid = int((bids[uniq] >= 0).sum())
+        n_bytes = q.numel() * 4 + pr.numel() * 8 + uniq.numel() * cap * 4 \
+            + valid * (d + 8) + b * K * 8
         bms, by = bound(n_bytes, 2 * b * p_ * cap * d)
 
         def library(q=q, pr=pr):
@@ -514,11 +662,12 @@ def check_hybrid_kernels(dev, timer) -> dict:
                                                      scales, bias), reps=10),
             "library_ms": timer(library, reps=10),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: ivf_scan(q, pr, codes, bids, K, scales, bias), 20),
-                ("ivf_bucket_int8_kernel", "topk_merge_kernel"))}
+            "kernel_device_us": ivf_device_us(
+                lambda: ivf_scan(q, pr, codes, bids, K, scales, bias)),
+            "ranges": plan_ranges(b, p_, cap, K, _build.sm_count(dev))}
     del codes, scales, bids
     torch.cuda.empty_cache()
+    ivf_edge_cases(dev, g, rec, scaled=True)
 
     # -- lexical_score: the cloud stage's lexical channel -------------------
     rec = res["lexical_score"] = {"cases": {}, "max_abs_err": 0.0}
@@ -881,7 +1030,8 @@ def profile_has(has, window, with_terms: bool) -> dict:
 
     if with_terms:
         return profile_window(
-            lambda q: has.step(q["emb"], q["terms"], q["term_weights"]),
+            lambda q: has.step(q["emb"], q_terms=q["terms"],
+                               q_term_weights=q["term_weights"]),
             window, restore)
     return profile_window(lambda q: has.step(q["emb"]), window, restore)
 

@@ -44,9 +44,7 @@ SIGNATURES = {
         "has_topk_search_smem": [_I] * 2,
     },
     "ivf_scan": {
-        "has_ivf_scan": [_P] * 7 + [_I] * 7 + [_P],
-        "has_ivf_scan_int8": [_P] * 9 + [_I] * 7 + [_P],
-        "has_ivf_merge": [_P] * 3 + [_I] * 3 + [_P] * 4,
+        "has_ivf_scan": [_P] * 11 + [_I] * 8 + [_P],
     },
     "homology_score": {
         "has_homology_score": [_P] * 7 + [_I] * 3 + [_P],
@@ -149,6 +147,30 @@ def sm_count(device: torch.device) -> int:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# (kernel, device index, stream) -> [buffer, ticket words, other words];
+# the ticket words at the front are zero between calls (the kernels that
+# take a ticket reset it)
+scratch_cache: dict[tuple[str, int, int], list] = {}
+
+
+def scratch(name: str, dev: torch.device, stream: int, tickets: int,
+            words: int) -> tuple[int, int]:
+    """Device pointers (tickets, words) into kernel ``name``'s cached
+    scratch buffer on (device, stream), grown when a call needs more; the
+    other words follow the ticket words.  One buffer per stream, so calls
+    on two streams never share one."""
+    key = (name, dev.index, stream)
+    ent = scratch_cache.get(key)
+    if ent is None or ent[1] < tickets or ent[2] < words:
+        t = max(tickets, ent[1] if ent else 0)
+        w = max(words, ent[2] if ent else 0)
+        buf = torch.empty(t + w, dtype=torch.float32, device=dev)
+        buf[:t].zero_()
+        ent = scratch_cache[key] = [buf, t, w]
+    base = ent[0].data_ptr()
+    return base, base + 4 * ent[1]
 
 
 def check(err: int, what: str) -> None:

@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;                 // 4 warps, both kernels
@@ -91,18 +93,9 @@ struct Scratch {
 // `row`, out of `members`; that CTA resets the ticket.
 __device__ bool arrive(const Scratch& sc, int row, int tix, int members,
                        int* flag_s) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* t = sc.tickets + static_cast<size_t>(row) * sc.tstride + tix;
-    const bool last = atomicAdd(t, 1) == members - 1;
-    if (last) atomicExch(t, 0);
-    *flag_s = last;
-  }
-  __syncthreads();
-  const bool last = *flag_s != 0;
-  if (last) __threadfence();
-  return last;
+  return has_kernels::arrive(
+      sc.tickets + static_cast<size_t>(row) * sc.tstride + tix, members,
+      flag_s);
 }
 
 // Merge partial slots [s0, s0+n) of `row`: out = sum_j acc_j w_j /

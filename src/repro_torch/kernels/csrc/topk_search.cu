@@ -43,10 +43,11 @@
 namespace {
 
 using has_kernels::better;
+using has_kernels::kFull;
+using has_kernels::warp_merge;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // 8 warps: WR warps across rows, 8 / WR across queries; slabs of DK
 // floats of d in a ring of STAGES
@@ -373,41 +374,6 @@ topk_scan_kernel(const float* __restrict__ q,
       cand_v[o] = v;
       cand_r[o] = v > -INFINITY ? lr[qi * k + j] : -1;
     }
-}
-
-// One warp merges n <= 32 sorted lists (list l: vals/rows + l * stride, k
-// entries, -inf ends a list) by their heads; emit(j, v, row) on lane 0
-// for j = 0..k-1, v = -inf once all are spent.
-template <class Emit>
-__device__ void warp_merge(const float* vals, const int* rows, int stride,
-                           int n, int k, int lane, Emit emit) {
-  const bool has = lane < n;
-  const float* lv = vals + static_cast<size_t>(has ? lane : 0) * stride;
-  const int* lr = rows + static_cast<size_t>(has ? lane : 0) * stride;
-  int head = 0;
-  float hv = has ? lv[0] : -INFINITY;
-  int hr = hv > -INFINITY ? lr[0] : INT_MAX;
-  for (int j = 0; j < k; ++j) {
-    float bv = hv;
-    int br = hr, bl = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int orr = __shfl_xor_sync(kFull, br, off);
-      const int ol = __shfl_xor_sync(kFull, bl, off);
-      if (better(ov, orr, bv, br) || (ov == bv && orr == br && ol < bl)) {
-        bv = ov;
-        br = orr;
-        bl = ol;
-      }
-    }
-    if (lane == 0) emit(j, bv, br);
-    if (lane == bl && bv > -INFINITY) {
-      ++head;
-      hv = head < k ? lv[head] : -INFINITY;
-      hr = hv > -INFINITY ? lr[head] : INT_MAX;
-    }
-  }
 }
 
 // One block per query: [n_lists sorted lists of k] -> its top-k.

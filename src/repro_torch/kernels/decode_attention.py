@@ -101,27 +101,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-# (device index, stream) -> [buffer, ticket words, partial words]; the
-# ticket words at the front are zero between calls (the kernel resets them)
-_scratch: dict[tuple[int, int], list] = {}
-
-
-def _scratch_for(dev: torch.device, stream: int, tickets: int,
-                 partials: int) -> tuple[int, int]:
-    """Device pointers (tickets, partials) into one cached buffer, grown
-    when a call needs more; the partial words follow the ticket words."""
-    key = (dev.index, stream)
-    ent = _scratch.get(key)
-    if ent is None or ent[1] < tickets or ent[2] < partials:
-        t = max(tickets, ent[1] if ent else 0)
-        p = max(partials, ent[2] if ent else 0)
-        buf = torch.empty(t + p, dtype=torch.float32, device=dev)
-        buf[:t].zero_()
-        ent = _scratch[key] = [buf, t, p]
-    base = ent[0].data_ptr()
-    return base, base + 4 * ent[1]
-
-
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len):
     """Same contract as :func:`decode_attention_plain`; the kernel on CUDA.
@@ -173,8 +152,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if nc > 1:
         parts = b * hkv * (nc + n_groups) * g
         ml_words = _cdiv(2 * parts, 4) * 4    # acc starts 16-byte aligned
-        tix, ml = _scratch_for(dev, stream, _cdiv(b * hkv * tstride, 4) * 4,
-                               ml_words + parts * d)
+        tix, ml = _build.scratch("decode_attention", dev, stream,
+                                 _cdiv(b * hkv * tstride, 4) * 4,
+                                 ml_words + parts * d)
         acc = ml + 4 * ml_words
     else:
         tix = ml = acc = None

@@ -4,11 +4,13 @@ centroid-residual codes (the compressed ANN cloud stage).
 ``ivf_scan`` replaces the Pallas kernel
 ``src/repro/kernels/ivf_scan.py::_ivf_kernel`` (f32) and its scaled mode
 ``_ivf_kernel_scaled`` (int8).  On a CUDA tensor it launches the
-hand-written kernels of ``csrc/ivf_scan.cu`` (pass 1: a top-k per (query,
-probed bucket, row range); pass 2: the candidate merge) and raises if that
-fails; on a CPU tensor it runs :func:`ivf_scan_plain`.  Both order by score
-descending, then by the flat probe position ``p * cap + slot``, as
-``lax.top_k`` over the reference's flattened pool does.
+hand-written kernel of ``csrc/ivf_scan.cu`` once (each query's probed pool
+cut into row ranges by :func:`plan_ranges`, a top-k per range, and the
+ranges' lists merged by the last CTA of the query in the same launch) and
+raises if that fails; on a CPU tensor it runs :func:`ivf_scan_plain`.  Both
+order by score descending, then by the flat probe position
+``p * cap + slot``, as ``lax.top_k`` over the reference's flattened pool
+does.
 
 Scaled mode (``bucket_scales`` and ``probe_bias`` together):
 ``bucket_vecs`` holds int8 codes of the residual ``v - centroid`` with one
@@ -21,54 +23,35 @@ that order; ``d`` must be even.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_search import MAX_K
 from repro_torch.utils import stable_topk
 
-# widest candidate row one merge warp holds in shared memory; wider rows
-# merge in rounds
-MERGE_WIDTH = 4096
+MAX_RANGES = 256       # lists one query's merge takes: 8 warps of 32
+MIN_RANGE_ROWS = 32    # a CTA scores at least this many rows
+CTAS_PER_SM = 16       # CTAs per SM the batch aims for (measured)
 
 
-def _row_splits(dev, b: int, p: int, cap: int, k: int) -> int:
-    """Row ranges per probed bucket, one block each: about four blocks per
-    SM for the batch, ranges of at least 32 rows, and each query's P*S*k
-    candidates within one merge row."""
-    sms = _build.sm_count(dev)
-    want = -(-4 * sms // (b * p))
-    return max(1, min(want, -(-cap // 32), MERGE_WIDTH // (p * k)))
+@functools.lru_cache(maxsize=4096)
+def plan_ranges(b: int, p: int, cap: int, k: int, sms: int) -> int:
+    """Row ranges L per query (one CTA each) for B queries of P probed
+    buckets of ``cap`` slots on ``sms`` SMs.
 
-
-def merge_candidates(fn, vals, keys, pay, k: int):
-    """Pass 2 on the card: [B, m] candidates -> [B, k] (vals, keys, pay).
-
-    ``fn`` is the C merge entry ``has_ivf_merge``.
-    Order: vals descending, then keys ascending.
-    """
-    b, m = vals.shape
-    dev = vals.device
-    while True:
-        g = -(-m // MERGE_WIDTH)
-        width = -(-m // g)
-        pad = g * width - m
-        if pad:
-            vals = torch.cat([vals, vals.new_full((b, pad), -torch.inf)], 1)
-            keys = torch.cat([keys, keys.new_full((b, pad), -1)], 1)
-            pay = torch.cat([pay, pay.new_full((b, pad), -1)], 1)
-        rows = b * g
-        out_v = torch.empty((rows, k), dtype=torch.float32, device=dev)
-        out_k = torch.empty((rows, k), dtype=torch.int32, device=dev)
-        out_p = torch.empty((rows, k), dtype=torch.int32, device=dev)
-        _build.check(fn(_build.ptr(vals), _build.ptr(keys), _build.ptr(pay),
-                        rows, width, k, _build.ptr(out_v), _build.ptr(out_k),
-                        _build.ptr(out_p), _build.stream(dev)),
-                     "top-k merge")
-        if g == 1:
-            return out_v, out_k, out_p
-        vals, keys, pay = (t.reshape(b, g * k) for t in (out_v, out_k, out_p))
-        m = g * k
+    Range z of a query's pool of n = P*cap flat positions is
+    ``[z*n // L, (z+1)*n // L)``.  L aims at CTAS_PER_SM CTAs per SM over
+    the batch, with ranges of at least MIN_RANGE_ROWS rows (one range for a
+    smaller pool) and at most MAX_RANGES lists for the in-launch merge.
+    Measured on an H100 by ``ivf_scan_probe.py``: at B=64 (int8, P=32,
+    cap=977) 8, 16, 32 and 64 CTAs per SM took 334, 296, 299 and 324 us
+    (f32, P=64, cap=123: 277, 276, 274, 339 us); B=1 is capped by the 256
+    lists and 32-row ranges either way.  ``k`` does not change the cut."""
+    n = p * cap
+    return max(1, min(MAX_RANGES, n // MIN_RANGE_ROWS,
+                      -(-CTAS_PER_SM * sms // b)))
 
 
 def _check_scaled(bucket_scales, probe_bias) -> bool:
@@ -154,27 +137,27 @@ def ivf_scan(queries: torch.Tensor, probe: torch.Tensor,
     if b == 0 or p == 0:
         return (torch.full((b, k), -torch.inf, device=dev),
                 torch.full((b, k), -1, dtype=torch.int32, device=dev))
+    if max(p, c) * cap >= 2 ** 31 - 1:
+        raise ValueError(f"ivf_scan: P*cap = {p * cap} pool slots and C*cap "
+                         f"= {c * cap} bucket rows must fit 32-bit ints")
     lib = _build.library("ivf_scan")
-    splits = _row_splits(dev, b, p, cap, k)
-    cand_v = torch.empty((b, p * splits * k), dtype=torch.float32,
-                         device=dev)
-    cand_k = torch.empty((b, p * splits * k), dtype=torch.int32, device=dev)
-    cand_i = torch.empty((b, p * splits * k), dtype=torch.int32, device=dev)
-    outs = (_build.ptr(cand_v), _build.ptr(cand_k), _build.ptr(cand_i))
+    n_ranges = plan_ranges(b, p, cap, k, _build.sm_count(dev))
+    stride = -(-n_ranges * k // 32) * 32        # whole 128-byte lines
+    st = _build.stream(dev)
+    tickets, lists = _build.scratch("ivf_scan", dev, st, -(-b // 32) * 32,
+                                    2 * b * stride)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    gids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    _build.check(lib.has_ivf_scan(
+        _build.ptr(q), _build.ptr(pr), _build.ptr(bucket_vecs),
+        _build.ptr(sc), _build.ptr(bias), _build.ptr(ids), tickets, lists,
+        lists + 4 * b * stride, _build.ptr(vals), _build.ptr(gids), b, p, c,
+        cap, d, k, n_ranges, stride, st),
+        "ivf_scan (int8)" if scaled else "ivf_scan")
     if scaled:
-        _build.check(lib.has_ivf_scan_int8(
-            _build.ptr(q), _build.ptr(pr), _build.ptr(bucket_vecs),
-            _build.ptr(sc), _build.ptr(bias), _build.ptr(ids), *outs, b, p,
-            c, cap, d, k, splits, _build.stream(dev)), "ivf_scan (int8)")
         ivf_scan.launches_int8 += 1
     else:
-        _build.check(lib.has_ivf_scan(
-            _build.ptr(q), _build.ptr(pr), _build.ptr(bucket_vecs),
-            _build.ptr(ids), *outs, b, p, c, cap, d, k, splits,
-            _build.stream(dev)), "ivf_scan")
         ivf_scan.launches += 1
-    vals, _, gids = merge_candidates(lib.has_ivf_merge, cand_v, cand_k,
-                                     cand_i, k)
     return vals, gids
 
 

@@ -139,15 +139,30 @@ class FullRetrievalEngine(ServeLoop):
 class HasEngine(ServeLoop):
     """The paper's system (Algorithm 1) on the service's device.
 
-    ``index`` (optional) is a prebuilt fuzzy-channel index, so several
-    engines can share one build; without it the engine builds its own from
-    the service's corpus.  ``backend`` is the kernel switch of
-    :func:`~repro_torch.core.has.speculate_batch` (None: by device).
+    The parameters follow the reference's, in its order.  ``fallback`` (the
+    ANNS fallback) and ``n_tenants > 1`` (a partitioned cache) are not
+    ported and raise; with one tenant, ``step(..., tenant=0)`` and a
+    query's ``"tenant"`` key are accepted and any other tag raises, as in
+    the reference.  ``index`` (keyword only) is a prebuilt fuzzy-channel
+    index, so several engines can share one build; without it the engine
+    builds its own from the service's corpus.  ``backend`` is the kernel
+    switch of :func:`~repro_torch.core.has.speculate_batch` (None: by
+    device).
     """
 
     def __init__(self, service: RetrievalService, cfg: HasConfig | None = None,
-                 fuzzy_fraction: float = 1.0, seed: int = 0,
-                 backend: str | None = None, index: IVFIndex | None = None):
+                 fallback=None, fuzzy_fraction: float = 1.0, seed: int = 0,
+                 backend: str | None = None, n_tenants: int = 1, *,
+                 index: IVFIndex | None = None):
+        if fallback is not None:
+            raise NotImplementedError(
+                "HasEngine(fallback=...): the ANNS fallback (ANNSEngine) is "
+                "not ported yet (ROADMAP queue 1, item 4)")
+        self.n_tenants = max(1, int(n_tenants))
+        if self.n_tenants != 1:
+            raise NotImplementedError(
+                f"HasEngine(n_tenants={n_tenants}): tenant partitions are not "
+                f"ported yet (ROADMAP queue 1, item 3)")
         super().__init__(service)
         self.cfg = cfg or HasConfig(k=service.k, d=service.world.cfg.d)
         self.device = service.device
@@ -156,6 +171,7 @@ class HasEngine(ServeLoop):
             index = build_ivf(service.corpus, self.cfg.n_buckets, seed=seed,
                               device=self.device)
         self.index = subset_index(index, fuzzy_fraction)
+        self.fallback = fallback
         self.backend = backend
         self.fuzzy_scope = (self.cfg.nprobe / self.cfg.n_buckets) \
             * fuzzy_fraction
@@ -164,16 +180,25 @@ class HasEngine(ServeLoop):
         speculate_batch(self.cfg, self.state, self.index, z, backend=backend)
         synchronize(self.device)
 
+    def _check_tenant(self, tenant: int) -> None:
+        """The reference's ``_tids`` check: a tag out of range raises."""
+        if not 0 <= tenant < self.n_tenants:
+            raise ValueError(
+                f"tenant {tenant} out of range for n_tenants="
+                f"{self.n_tenants}")
+
     def _fuzzy_time(self) -> float:
         """Analytic fuzzy-channel scan time at the target corpus scale."""
         lat = self.s.latency
         return lat.scan_time(lat.target_corpus * self.fuzzy_scope * 2.0
                              + self.cfg.n_buckets)
 
-    def step(self, q_emb: np.ndarray, q_terms=None, q_term_weights=None):
+    def step(self, q_emb: np.ndarray, tenant: int = 0, q_terms=None,
+             q_term_weights=None):
         """Returns (ids, accept, latency_s, homology).  ``q_terms`` /
         ``q_term_weights`` reach a lexical cloud backend on a reject."""
         lat = self.s.latency.sample_edge()
+        self._check_tenant(tenant)
         q = as_f32(q_emb, self.device)
         synchronize(self.device)
         t0 = time.perf_counter()
@@ -196,6 +221,8 @@ class HasEngine(ServeLoop):
         return ids, False, lat, homology
 
     def _step(self, q, rng, dataset):
-        ids, accept, lat, _ = self.step(q["emb"], q.get("terms"),
-                                        q.get("term_weights"))
+        ids, accept, lat, _ = self.step(q["emb"],
+                                        tenant=int(q.get("tenant", 0)),
+                                        q_terms=q.get("terms"),
+                                        q_term_weights=q.get("term_weights"))
         return ids, accept, lat

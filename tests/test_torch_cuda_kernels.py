@@ -24,10 +24,12 @@ from repro_torch.kernels.fused_rerank import (final_topk, fused_scores,
                                               fused_scores_plain)
 from repro_torch.kernels.homology_score import (homology_score,
                                                 homology_score_plain)
+from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
 from repro_torch.kernels.lexical_score import (lexical_score,
                                                lexical_score_plain)
-from repro_torch.kernels.topk_search import topk_search, topk_search_plain
+from repro_torch.kernels.topk_search import (MAX_K, topk_search,
+                                             topk_search_plain)
 
 
 def _t(a):
@@ -150,6 +152,136 @@ def test_cuda_ivf_scan_int8_vs_plain(cuda_dev, b, p, cap):
     v1, i1 = ivf_scan(*args, k, **kw)
     torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
     assert _near_tie_ok(v0, i0, i1)
+
+
+def _ivf_world(rng, scaled, c, cap, d):
+    """(vecs, ids, scales) of an index of c buckets: f32 vectors, or int8
+    codes with their two scales; ~30% pad slots."""
+    ids = rng.permutation(c * cap).reshape(c, cap).astype(np.int32)
+    ids[rng.random((c, cap)) < 0.3] = -1
+    if not scaled:
+        return rng.normal(size=(c, cap, d)).astype(np.float32), ids, None
+    codes = rng.integers(-127, 128, size=(c, cap, d)).astype(np.int8)
+    return codes, ids, rng.uniform(1e-4, 1e-3, (c, cap, 2)).astype(
+        np.float32)
+
+
+def _ivf_call(dev, q, probe, vecs, ids, scales, k, bias=None):
+    """Kernel and plain results of one call; the plain version gets the
+    probe clamped into range, as the kernel clamps it."""
+    t = [_t(x).to(dev) for x in (q, probe, vecs, ids)]
+    kw = {}
+    if scales is not None:
+        if bias is None:
+            bias = np.random.default_rng(1).normal(
+                size=probe.shape).astype(np.float32)
+        kw = dict(bucket_scales=_t(scales).to(dev),
+                  probe_bias=_t(bias).to(dev))
+    counter = "launches_int8" if kw else "launches"
+    n0 = getattr(ivf_scan, counter)
+    got = ivf_scan(*t, k, **kw)
+    assert getattr(ivf_scan, counter) == n0 + 1          # one launch
+    t[1] = t[1].clamp(0, vecs.shape[0] - 1)
+    return got, ivf_scan_plain(*t, k, **kw)
+
+
+# (B, P, cap, k, d) of the one-launch cases
+IVF_CASES = {"B=1": (1, 64, 61, 10, 768), "B=7": (7, 64, 61, 10, 768),
+             "B=64": (64, 64, 61, 10, 768), "B=65": (65, 64, 61, 10, 768),
+             "k=1": (7, 64, 61, 1, 768), "k=MAX_K": (7, 64, 61, MAX_K, 768),
+             "P=1": (7, 1, 61, 10, 768), "P=512": (7, 512, 61, 10, 768),
+             "pool < k": (3, 3, 3, 10, 768), "d=770": (7, 16, 37, 10, 770)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("case", list(IVF_CASES))
+def test_cuda_ivf_scan_one_launch_vs_plain(cuda_dev, case, scaled):
+    """Both modes in one launch, with an out-of-range probe (clamped)."""
+    b, p, cap, k, d = IVF_CASES[case]
+    rng = np.random.default_rng(p * cap + b)
+    c = p + 2
+    vecs, ids, scales = _ivf_world(rng, scaled, c, cap, d)
+    probe = np.stack([rng.permutation(c - 1)[:p] for _ in range(b)]) \
+        .astype(np.int32)
+    probe[:, -1] = c + 5                        # clamped to bucket c - 1
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    (v1, i1), (v0, i0) = _ivf_call(cuda_dev, q, probe, vecs, ids, scales, k)
+    torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+    assert _near_tie_ok(v0, i0, i1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+def test_cuda_ivf_scan_pads_and_ties(cuda_dev, scaled):
+    """Every probed slot a pad gives (-inf, -1); equal vectors in two
+    probed buckets tie, and the earlier probe wins."""
+    rng = np.random.default_rng(11)
+    vecs, ids, scales = _ivf_world(rng, scaled, 40, 61, 768)
+    pads = ids.copy()
+    pads[:20] = -1
+    probe = np.stack([rng.permutation(20) for _ in range(3)]).astype(np.int32)
+    q = rng.normal(size=(3, 768)).astype(np.float32)
+    (v1, i1), _ = _ivf_call(cuda_dev, q, probe, vecs, pads, scales, 10)
+    assert torch.isneginf(v1).all() and (i1 == -1).all()
+    probe = np.stack([rng.permutation(40)[:16] for _ in range(2)]) \
+        .astype(np.int32)
+    early, late = probe[0, 2], probe[0, 11]
+    vecs[late, 7] = vecs[early, 30]
+    ids[early, 30], ids[late, 7] = 10 ** 8, 10 ** 8 + 1
+    if scaled:
+        scales[early, 30] = scales[late, 7] = 1.1e-3
+    q = np.repeat(vecs[early, 30].astype(np.float32)[None], 2, 0)
+    (v1, i1), (v0, i0) = _ivf_call(cuda_dev, q, probe, vecs, ids, scales, 10,
+                                   bias=np.full((2, 16), 0.5, np.float32))
+    assert float(v1[0, 0]) == float(v1[0, 1])
+    assert i1[0, :2].tolist() == [10 ** 8, 10 ** 8 + 1]
+    torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+def test_cuda_ivf_scan_back_to_back_and_two_streams(cuda_dev, scaled):
+    """200 calls on one stream repeat the first and leave every ticket at
+    zero; calls on two streams at once each match the plain version."""
+    rng = np.random.default_rng(12)
+    vecs, ids, scales = _ivf_world(rng, scaled, 300, 61, 768)
+    t = dict(vecs=_t(vecs).to(cuda_dev), ids=_t(ids).to(cuda_dev))
+    kw = {}
+    if scaled:
+        kw = dict(bucket_scales=_t(scales).to(cuda_dev))
+
+    def inputs(b):
+        q = _t(rng.normal(size=(b, 768)).astype(np.float32)).to(cuda_dev)
+        pr = _t(np.stack([rng.permutation(300)[:64] for _ in range(b)])
+                .astype(np.int32)).to(cuda_dev)
+        bias = dict(probe_bias=_t(rng.normal(size=(b, 64)).astype(
+            np.float32)).to(cuda_dev)) if scaled else {}
+        return q, pr, bias
+
+    q, pr, bias = inputs(7)
+    first = ivf_scan(q, pr, t["vecs"], t["ids"], 10, **kw, **bias)
+    for _ in range(199):
+        last = ivf_scan(q, pr, t["vecs"], t["ids"], 10, **kw, **bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], last[0]) and torch.equal(first[1], last[1])
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "ivf_scan":
+            assert not buf[:n_tickets].view(torch.int32).any()
+    args = [inputs(b) for b in (3, 65)]
+    streams = [torch.cuda.Stream() for _ in args]
+    outs = []
+    for st, (q, pr, bias) in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(ivf_scan(q, pr, t["vecs"], t["ids"], 10, **kw,
+                                 **bias))
+    torch.cuda.synchronize()
+    for (q, pr, bias), (v1, i1) in zip(args, outs):
+        v0, i0 = ivf_scan_plain(q, pr, t["vecs"], t["ids"], 10, **kw,
+                                **bias)
+        torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+        assert _near_tie_ok(v0, i0, i1)
 
 
 @pytest.mark.cuda

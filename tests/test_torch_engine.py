@@ -128,3 +128,71 @@ def test_service_batch_search_calibration_and_injected_backend(setup):
     svc = PtService(world, PtLatency(), k=10, backend=backend, device="cpu")
     assert svc.backend is backend and svc.corpus is backend.corpus
     assert isinstance(backend, FullRetrievalBackend)
+
+
+# -- HasEngine's parameters follow the reference's, in its order -----------
+
+def _port_engine(ps, *args, **kw):
+    return PtHas(ps, PtCfg(**CFG), *args, backend="torch", **kw)
+
+
+def test_has_engine_step_tenant_zero_is_the_default(setup):
+    """``step(q, 0)`` (the reference's positional tenant) serves exactly
+    what ``step(q)`` does; a tag of 1 raises as the reference's ``_tids``
+    does with one tenant."""
+    queries, _, ps = setup
+    a, b = _port_engine(ps), _port_engine(ps)
+    for q in queries[:40]:
+        ra, rb = a.step(q["emb"]), b.step(q["emb"], 0)
+        np.testing.assert_array_equal(np.asarray(ra[0]), np.asarray(rb[0]))
+        assert ra[1] == rb[1] and ra[3] == rb[3]
+    with pytest.raises(ValueError, match="tenant 1 out of range"):
+        a.step(queries[0]["emb"], 1)
+
+
+def test_has_engine_serve_routes_the_tenant_key(setup):
+    queries, _, ps = setup
+    eng = _port_engine(ps)
+    tagged = [dict(q, tenant=0) for q in queries[:20]]
+    got = eng.serve(tagged)
+    want = _port_engine(ps).serve(queries[:20])
+    np.testing.assert_array_equal(got.accepts, want.accepts)
+    np.testing.assert_array_equal(got.doc_hits, want.doc_hits)
+    with pytest.raises(ValueError, match="tenant 1 out of range"):
+        eng.serve([dict(queries[0], tenant=1)])
+
+
+def test_has_engine_third_positional_is_fallback(setup):
+    _, _, ps = setup
+    eng = PtHas(ps, PtCfg(**CFG), None)
+    assert eng.fallback is None and eng.n_tenants == 1
+    assert eng.fuzzy_scope == CFG["nprobe"] / CFG["n_buckets"]
+
+
+@pytest.mark.parametrize("kw", [dict(fallback=object()),
+                                dict(n_tenants=2)])
+def test_has_engine_unported_options_raise(setup, kw):
+    _, _, ps = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        _port_engine(ps, **kw)
+
+
+def test_has_engine_reference_style_call_matches_reference(setup):
+    """``HasEngine(service, cfg).step(q, 0, terms, weights)``, written as a
+    reference caller writes it, serves the reference's ids and accept bits
+    (the reference's index handed across)."""
+    queries, rs, ps = setup
+    ref_eng = RefHas(rs, RefCfg(**CFG), None, 1.0, 0, "xla")
+    index = convert.ivf_index_from_numpy(
+        {f: np.asarray(getattr(ref_eng.index, f))
+         for f in convert.IVF_FIELDS}, device="cpu")
+    pt_eng = PtHas(ps, PtCfg(**CFG), None, 1.0, 0, "torch", index=index)
+    accepts = []
+    for i, q in enumerate(queries[:80]):
+        r = ref_eng.step(q["emb"], 0, q["terms"], q["term_weights"])
+        p = pt_eng.step(q["emb"], 0, q["terms"], q["term_weights"])
+        np.testing.assert_array_equal(np.asarray(r[0]), np.asarray(p[0]),
+                                      err_msg=f"ids of query {i}")
+        assert r[1] == p[1], f"accept of query {i}"
+        accepts.append(p[1])
+    assert any(accepts) and not all(accepts)    # both branches exercised

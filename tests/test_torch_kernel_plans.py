@@ -2,14 +2,16 @@
 
 The kernels themselves run only on the card (``test_torch_cuda_kernels.py``);
 how their wrappers cut the work is plain Python and is checked here:
-decode_attention's chunks of the cache and its kernel route, and
-topk_search's query tiles and even row ranges.  Every position,
-row and query must be covered exactly once.
+decode_attention's chunks of the cache and its kernel route,
+topk_search's query tiles and even row ranges, and ivf_scan's row ranges
+over each query's probed pool.  Every position, row and query must be
+covered exactly once.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import ivf_scan as IS
 from repro_torch.kernels import topk_search as TS
 
 N_SM = 132                                  # an H100 SXM
@@ -100,3 +102,29 @@ def test_topk_scan_covers_rows_and_queries_once(b, n, k):
     # about one block per SM in all, so each query keeps grid_x * k
     # candidates for the merge (~1,300 at B=1, k=10)
     assert grid_x * q_tiles <= N_SM + q_tiles
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("k", [10, 1024])
+@pytest.mark.parametrize("cap", [1, 5, 123, 977])
+@pytest.mark.parametrize("p", [1, 64, 300, 512])
+@pytest.mark.parametrize("b", [1, 64, 65])
+def test_ivf_ranges_cover_the_pool_once(b, p, cap, k, sms):
+    """ivf_scan's L ranges of a query's P*cap flat positions (range z is
+    [z*n // L, (z+1)*n // L), as the kernel cuts it): each position once,
+    at most 256 lists for the merge, ranges of at least 32 rows unless the
+    pool is smaller, and at B=1 a CTA or more per SM wherever the pool has
+    32 rows per SM."""
+    n_ranges = IS.plan_ranges(b, p, cap, k, sms)
+    n = p * cap
+    assert 1 <= n_ranges <= IS.MAX_RANGES
+    z = torch.arange(n_ranges + 1, dtype=torch.int64)
+    bounds = z * n // n_ranges
+    sizes = bounds[1:] - bounds[:-1]
+    assert int(bounds[0]) == 0 and int(bounds[-1]) == n
+    assert bool((sizes >= 1).all())          # ordered, none empty: a cover
+    assert int(sizes.min()) >= min(n, IS.MIN_RANGE_ROWS)
+    assert int(sizes.max() - sizes.min()) <= 1
+    if b == 1 and n >= IS.MIN_RANGE_ROWS * sms:
+        assert n_ranges >= min(sms, IS.MAX_RANGES)
+    assert b * n_ranges <= IS.CTAS_PER_SM * sms + b   # ~4 CTAs per SM
