@@ -17,7 +17,14 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    two streams, one launch per call; decode attention at the RAG shape
    for chatglm3-6b's G=16 and the G=4 and G=9 of the other dense configs,
    decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
-   Criteo tables, B=512) and at edge cases; time kernel, plain version,
+   Criteo tables, B=512; homology_validate (scores, best row, its score)
+   at B=1, 64, 200, k=1, 10, 32 and a generic k, weighted, grouped, ties
+   across CTAs, 200 calls back to back and two streams; fused_rerank with
+   its final top-k at B=1, 64, 65, P=1, 20, 64, k=1, 10 and > P; both one
+   launch a call, each beside the split sequence (the reduction in
+   launches of its own after the kernel), and
+   fused_rerank's phases from ``kernels/fused_rerank_probe.py``'s traced
+   build) and at edge cases; time kernel, plain version,
    library call and the bound; print ptxas's registers and spills per
    kernel and the dynamic shared memory of the redesigned ones; then the
    tables' lookup path: fresh B=512 batches through ``embedding_bag_op``
@@ -28,8 +35,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    64, over 500,000 synthetic passages (100,000 entities); the launch
    counts are set to 0 before it and read after: topk_search, ivf_scan and
    homology_score must each be > 0; then a profiled window of 100 fresh
-   queries and a 300-query replay with ``backend="torch"`` on the same
-   index (accept bits equal, ids equal up to near-ties);
+   queries, once as the port runs it and once split (the same kernels,
+   with validation's argmax and gather and the cloud stage's two sorts in
+   launches of their own), from one cache snapshot, and a 300-query replay with
+   ``backend="torch"`` on the same index (accept bits equal, ids equal up
+   to near-ties);
 5. the hybrid cloud stage on the same world: ``HybridBackend`` (dense
    "ann": 1024 clusters, nprobe 32, int8 residual codes; lexical top-10
    over 512-row tiles; RRF k=60, diversify 0.98) under
@@ -53,6 +63,8 @@ Details of every phase are written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
@@ -89,7 +101,10 @@ DECODE_TOL = 2e-5              # f32 softmax sums in another order (rtol+atol)
 TOPK_KERNELS = ("topk_scan_kernel", "topk_block_merge_kernel")
 DECODE_KERNELS = ("decode_attn_mma_kernel", "decode_attn_simt_kernel")
 IVF_KERNELS = ("ivf_range_kernel",)
+HOMOLOGY_KERNEL = "homology_kernel"
+FUSED_KERNEL = "fused_topk_kernel"
 IVF_BACK_TO_BACK = 200         # calls on one stream, then the tickets read 0
+TAU = 0.2                      # HaS accept threshold (Algorithm 1 line 11)
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -299,16 +314,17 @@ def ivf_check(rec, name, q, probe, vecs, ids, k, scales=None, bias=None):
     return ki
 
 
-def ivf_device_us(call) -> float:
-    """Device time (us) of one ivf_scan call, from the profiler, which must
-    see one kernel launch per call and nothing else: the merge runs in the
-    same launch, and no scratch is allocated or cleared."""
+def one_launch_us(what, call, symbol) -> float:
+    """Device time (us) of one call, from the profiler, which must see one
+    launch per call of the kernel ``symbol`` and nothing else: the
+    reduction runs in the same launch, and no output or scratch is
+    cleared."""
     counts = {}
     times = device_times(call, 20, counts=counts)
-    if set(counts) != {k for k in counts if IVF_KERNELS[0] in k} or \
+    if set(counts) != {k for k in counts if symbol in k} or \
             sum(counts.values()) != 1:
-        raise AssertionError(f"ivf_scan: launches per call {counts}")
-    return own_kernel_us(times, IVF_KERNELS)
+        raise AssertionError(f"{what}: launches per call {counts}")
+    return own_kernel_us(times, (symbol,))
 
 
 def ivf_edge_cases(dev, g, rec, scaled: bool):
@@ -434,8 +450,6 @@ def ivf_edge_cases(dev, g, rec, scaled: bool):
 
 def check_kernels(dev, timer) -> dict:
     from repro_torch.kernels import _build
-    from repro_torch.kernels.homology_score import (homology_score,
-                                                    homology_score_plain)
     from repro_torch.kernels.ivf_scan import (ivf_scan, ivf_scan_plain,
                                               plan_ranges)
     from repro_torch.kernels.topk_search import (topk_search,
@@ -532,67 +546,169 @@ def check_kernels(dev, timer) -> dict:
             "plain_ms": timer(lambda: ivf_scan_plain(q, pr, bvecs, bids, K)),
             "library_ms": timer(library),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": ivf_device_us(
-                lambda: ivf_scan(q, pr, bvecs, bids, K)),
+            "kernel_device_us": one_launch_us(
+                "ivf_scan", lambda: ivf_scan(q, pr, bvecs, bids, K),
+                IVF_KERNELS[0]),
             "ranges": plan_ranges(b, pr.shape[1], cap, K,
                                   _build.sm_count(dev))}
     del bvecs, bids
     ivf_edge_cases(dev, g, rec, scaled=False)
 
     # -- homology_score: validation against the query cache ---------------
-    rec = res["homology_score"] = {"cases": {}, "max_abs_err": 0.0}
-    h = 5000
-    cache = torch.randint(-1, 2000, (h, K), device=dev, generator=g,
-                          dtype=torch.int32)
-    cvalid = torch.rand(h, device=dev, generator=g) < 0.8
+    res["homology_score"] = check_homology(dev, g, timer)
+    return res
 
-    def drafts(b):
-        x = torch.randint(-1, 2000, (b, K), device=dev, generator=g,
-                          dtype=torch.int32)
-        x[: b // 2 + 1, :3] = cache[: b // 2 + 1, :3]   # real overlaps
+
+def check_homology(dev, g, timer) -> dict:
+    """homology_score and homology_validate (scores, best, slot in one
+    launch) against their plain versions; the split validation sequence
+    (scores, then first_argmax and the gather in launches of their own)
+    timed beside the new one."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.homology_score import (homology_score,
+                                                    homology_validate,
+                                                    homology_validate_plain)
+    from repro_torch.utils import first_argmax
+
+    rec = {"cases": {}, "max_abs_err": 0.0, "slot_near_ties": 0}
+    h = 5000
+
+    def table(k):
+        return torch.randint(-1, 2000, (h, k), device=dev, generator=g,
+                             dtype=torch.int32)
+
+    def drafts(b, cache_):
+        x = torch.randint(-1, 2000, (b, cache_.shape[1]), device=dev,
+                          generator=g, dtype=torch.int32)
+        n = b // 2 + 1
+        x[:n, :3] = cache_[torch.randint(0, h, (n,), device=dev,
+                                         generator=g), :3]   # real overlaps
         return x
+
+    cache = table(K)
+    cvalid = torch.rand(h, device=dev, generator=g) < 0.8
 
     def hom_case(name, draft, cache_, valid_, exact=True, **kw):
         ks = homology_score(draft, cache_, valid_, **kw)
-        ps = homology_score_plain(draft, cache_, valid_, **kw)
-        err = float_err(ks, ps, f"homology_score/{name}")
-        if (exact and not torch.equal(ks, ps)) or err > 1e-6:
-            raise AssertionError(f"homology_score/{name}: error {err}")
-        rec["cases"][name] = {"max_abs_err": err}
+        kv = homology_validate(draft, cache_, valid_, **kw)
+        ps, pb, pt = homology_validate_plain(draft, cache_, valid_, **kw)
+        err = max(float_err(x, ps, f"homology_score/{name}")
+                  for x in (ks, kv[0]))
+        ties = 0
+        if exact:
+            if not (torch.equal(ks, ps) and torch.equal(kv[0], ps)
+                    and torch.equal(kv[1], pb) and torch.equal(kv[2], pt)):
+                raise AssertionError(f"homology_score/{name}: scores, best "
+                                     f"or slot not bit-equal")
+        else:
+            at = torch.gather(ps, 1, kv[2].long()[:, None])[:, 0]
+            if err > 1e-6 or float((kv[1] - pb).abs().max()) > 1e-6 or \
+                    float((at - pb).abs().max()) > 1e-6:
+                raise AssertionError(f"homology_score/{name}: error {err}")
+            ties = int((kv[2] != pt).sum())
+        rec["cases"][name] = {"max_abs_err": err, "slot_near_ties": ties}
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["slot_near_ties"] += ties
+        return kv
 
-    d1, d64 = drafts(1), drafts(64)
+    d1, d64 = drafts(1, cache), drafts(64, cache)
     hom_case("B=1,H=5000", d1, cache, cvalid)
     hom_case("B=64,H=5000", d64, cache, cvalid)
-    hom_case("empty cache", d64, cache,
-             torch.zeros(h, dtype=torch.bool, device=dev))
+    hom_case("B=200,H=5000", drafts(200, cache), cache, cvalid)
+    for k in (1, 32, 7):                  # the other templated widths and
+        ck = table(k)                     # the generic route
+        hom_case(f"B=64,k={k}", drafts(64, ck), ck, cvalid)
+    none = torch.zeros(h, dtype=torch.bool, device=dev)
+    got = hom_case("empty cache", d64, cache, none)
+    if got[1].any() or got[2].any():
+        raise AssertionError("homology_validate: an empty cache gave a row")
     w = torch.rand(64, K, device=dev, generator=g)
-    hom_case("draft_weights", d64, cache, cvalid, exact=False,
+    hom_case("draft_weights (normalised)", d64, cache, cvalid, exact=False,
              draft_weights=w / w.sum(1, keepdim=True))
+    hom_case("draft_weights (multiples of 1/64)", d64, cache, cvalid,
+             draft_weights=torch.randint(0, 9, (64, K), device=dev,
+                                         generator=g).float() / 64)
     hom_case("groups", d64, cache, cvalid,
              row_group=(torch.arange(h, device=dev) % 4).int(),
              q_group=(torch.arange(64, device=dev) % 4).int())
+    # equal best scores in rows of other CTAs: the lowest row wins
+    tc = cache.clone()
+    td = torch.arange(3 * K, device=dev, dtype=torch.int32).reshape(3, K) \
+        + 10 ** 6
+    for row, rows in enumerate(((4999, 130, 3001), (128, 127), (4000,))):
+        tc[list(rows), :4] = td[row, :4]
+    got = hom_case("ties across CTAs", td, tc, torch.ones_like(cvalid))
+    if got[2].tolist() != [130, 127, 4000]:
+        raise AssertionError(f"homology_validate: ties went to "
+                             f"{got[2].tolist()}")
+    # back to back on one stream, then the tickets; two streams at once
+    first = homology_validate(d64, cache, cvalid)
+    for _ in range(IVF_BACK_TO_BACK - 1):
+        last = homology_validate(d64, cache, cvalid)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, last)):
+        raise AssertionError("homology_validate: back-to-back calls differ")
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "homology_score" and \
+                buf[:n_tickets].view(torch.int32).any():
+            raise AssertionError("homology_validate: tickets not reset")
+    rec["cases"]["back-to-back"] = {"calls": IVF_BACK_TO_BACK,
+                                    "tickets_zero": True}
+    args = [drafts(b, cache) for b in (3, 65)]
+    streams = [torch.cuda.Stream() for _ in args]
+    outs = []
+    for st, dr in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(homology_validate(dr, cache, cvalid))
+    torch.cuda.synchronize()
+    for i, (dr, got) in enumerate(zip(args, outs)):
+        want = homology_validate_plain(dr, cache, cvalid)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"homology_validate: stream {i} differs")
+
+    tau = torch.tensor(TAU, dtype=torch.float32)
+
+    def split_sequence(dr):               # scores, then the argmax
+        scores = homology_score(dr, cache, cvalid)
+        slot = first_argmax(scores)
+        return torch.gather(scores, 1, slot[:, None])[:, 0] > tau
+
+    def new_sequence(dr):
+        return homology_validate(dr, cache, cvalid)[1] > tau
+
     for b, dr in ((1, d1), (64, d64)):
-        n_bytes = dr.numel() * 4 + cache.numel() * 4 + h + b * h * 4
+        n_bytes = dr.numel() * 4 + cache.numel() * 4 + h + b * h * 4 + b * 8
         bms, by = bound(n_bytes, b * h * K * K)
+        seq = {}
+        for name, fn in (("split", split_sequence),
+                         ("one launch", new_sequence)):
+            counts = {}
+            times = device_times(lambda: fn(dr), 20, counts=counts)
+            seq[name] = {"ms": timer(lambda: fn(dr)),
+                         "device_us": sum(times.values()),
+                         "launches": sum(counts.values())}
         rec[f"B={b}"] = {
-            "ms": timer(lambda: homology_score(dr, cache, cvalid)),
-            "plain_ms": timer(lambda: homology_score_plain(dr, cache,
-                                                           cvalid)),
+            "ms": timer(lambda: homology_validate(dr, cache, cvalid)),
+            "plain_ms": timer(lambda: homology_validate_plain(dr, cache,
+                                                              cvalid)),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: homology_score(dr, cache, cvalid), 20),
-                ("homology_kernel",))}
-    return res
+            "kernel_device_us": one_launch_us(
+                "homology_validate",
+                lambda: homology_validate(dr, cache, cvalid),
+                HOMOLOGY_KERNEL),
+            "scores_only_ms": timer(lambda: homology_score(dr, cache,
+                                                           cvalid)),
+            "scores_only_device_us": one_launch_us(
+                "homology_score", lambda: homology_score(dr, cache, cvalid),
+                HOMOLOGY_KERNEL),
+            "validation_to_accept": seq}
+    return rec
 
 
 def check_hybrid_kernels(dev, timer) -> dict:
     """Phase 3 for the hybrid cloud stage's kernels: int8 ivf_scan,
     lexical_score and fused_rerank."""
-    from repro_torch.kernels.fused_rerank import (final_topk, fused_rerank,
-                                                  fused_rerank_plain,
-                                                  fused_scores,
-                                                  fused_scores_plain)
     from repro_torch.kernels import _build
     from repro_torch.kernels.ivf_scan import (ivf_scan, ivf_scan_plain,
                                               plan_ranges)
@@ -662,8 +778,10 @@ def check_hybrid_kernels(dev, timer) -> dict:
                                                      scales, bias), reps=10),
             "library_ms": timer(library, reps=10),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": ivf_device_us(
-                lambda: ivf_scan(q, pr, codes, bids, K, scales, bias)),
+            "kernel_device_us": one_launch_us(
+                "ivf_scan (int8)",
+                lambda: ivf_scan(q, pr, codes, bids, K, scales, bias),
+                IVF_KERNELS[0]),
             "ranges": plan_ranges(b, p_, cap, K, _build.sm_count(dev))}
     del codes, scales, bids
     torch.cuda.empty_cache()
@@ -726,23 +844,30 @@ def check_hybrid_kernels(dev, timer) -> dict:
     del dt, dw, dt_tie, dw_tie
 
     # -- fused_rerank: RRF + diversification + rerank of the pool -----------
-    rec = res["fused_rerank"] = {"cases": {}, "max_abs_err": 0.0,
-                                 "swaps": 0, "near_threshold_rows": 0}
+    res["fused_rerank"] = check_fused(dev, g, timer)
+    return res
 
-    def pools(b):
-        ids = torch.stack([torch.randperm(3000, device=dev, generator=g)
-                           [:POOL] for _ in range(b)]).int()
-        ids[:, K:K + 3] = ids[:, 2:5]              # cross-channel duplicates
-        ids[:, -2:] = -1                           # lexical found fewer
-        vecs = unit(b, POOL)
-        vecs[:, 7] = vecs[:, 6] + 0.02 * unit(b)   # near-duplicates
-        vecs[:, 7] /= vecs[:, 7].norm(dim=-1, keepdim=True)
-        vecs[ids < 0] = 0.0
-        return unit(b), ids, vecs
 
-    def fused_case(name, q, ids, vecs, dsim):
-        km, kr = fused_scores(q, ids, vecs, K, 60.0, dsim)
-        pm, pr = fused_scores_plain(q, ids, vecs, K, 60.0, dsim)
+def check_fused(dev, g, timer) -> dict:
+    """fused_scores (masses, rscores) and fused_rerank (the final top-k in
+    the same launch) against their plain versions, one launch a call; the
+    split sequence (the scores, then the reference's two stable sorts and
+    gathers in launches of their own) timed beside the new one."""
+    from repro_torch.kernels.fused_rerank import (final_topk, fused_rerank,
+                                                  fused_rerank_plain,
+                                                  fused_scores,
+                                                  fused_scores_plain)
+    from repro_torch.kernels.fused_rerank_probe import pools
+
+    rec = {"cases": {}, "max_abs_err": 0.0, "swaps": 0,
+           "near_threshold_rows": 0}
+
+    def fused_case(name, q, ids, vecs, dsim, k=K):
+        kd = ids.shape[1] // 2
+        km, kr = fused_scores(q, ids, vecs, kd, 60.0, dsim)
+        kv, ki = fused_rerank(q, ids, vecs, kd, k, 60.0, dsim)
+        pm, pr = fused_scores_plain(q, ids, vecs, kd, 60.0, dsim)
+        pv, pi = fused_rerank_plain(q, ids, vecs, kd, k, 60.0, dsim)
         err = float_err(kr, pr, f"fused_rerank/{name} rscore")
         if err > SCORE_TOL:
             raise AssertionError(f"fused_rerank/{name}: rscore error {err}")
@@ -755,16 +880,17 @@ def check_hybrid_kernels(dev, timer) -> dict:
         same = (km == pm) | (torch.isneginf(km) & torch.isneginf(pm))
         if not (same.all(dim=1) | exempt).all():
             raise AssertionError(f"fused_rerank/{name}: masses differ")
-        kv, ki = final_topk(km, kr, ids, K)
-        pv, pi = final_topk(pm, pr, ids, K)
+        if kv.shape != pv.shape or not (
+                (kv == pv) | (torch.isneginf(kv) & torch.isneginf(pv))
+                ).all(dim=1)[~exempt].all():
+            raise AssertionError(f"fused_rerank/{name}: vals differ")
         swaps = 0
         for row, j in (ki != pi).nonzero().tolist():
             if exempt[row]:
                 continue
             a = (ids[row] == ki[row, j]).nonzero()[0, 0]
             b = (ids[row] == pi[row, j]).nonzero()[0, 0]
-            if kv[row, j] != pv[row, j] or \
-                    abs(float(pr[row, a] - pr[row, b])) > SCORE_TOL:
+            if abs(float(pr[row, a] - pr[row, b])) > SCORE_TOL:
                 raise AssertionError(f"fused_rerank/{name}: id swap at "
                                      f"[{row},{j}] is not a near-tie")
             swaps += 1
@@ -774,29 +900,53 @@ def check_hybrid_kernels(dev, timer) -> dict:
         rec["swaps"] += swaps
         rec["near_threshold_rows"] += int(exempt.sum())
 
-    f1, f64 = pools(1), pools(64)
+    f1, f64 = pools(1, dev, g), pools(64, dev, g)
     for dsim in (None, 0.98):
         fused_case(f"B=1,dsim={dsim}", *f1, dsim)
         fused_case(f"B=64,dsim={dsim}", *f64, dsim)
-    fq, fi, fv = pools(8)
+    fused_case("B=65,dsim=0.5", *pools(65, dev, g), 0.5)
+    for p, k in ((1, 1), (1, 10), (64, 10), (64, 100)):
+        fused_case(f"B=64,P={p},k={k},dsim=0.98", *pools(64, dev, g, p), 0.98,
+                   k=k)
+    fused_case("B=7,P=20,k=25 (> P),dsim=0.98", *pools(7, dev, g), 0.98, k=25)
+    fq, fi, fv = pools(8, dev, g)
     fi[0] = -1                                     # nothing retrieved
     fv[0] = 0.0
     fused_case("empty pool, dsim=0.98", fq, fi, fv, 0.98)
+
+    def split_sequence(q, ids, vecs):      # scores, then the sorts
+        return final_topk(*fused_scores(q, ids, vecs, K, 60.0, 0.98), ids, K)
+
     for b, (q, ids, vecs) in ((1, f1), (64, f64)):
         n_bytes = q.numel() * 4 + ids.numel() * 4 + vecs.numel() * 4 \
             + b * K * 8
-        ops = b * (5 * POOL * d + 2 * POOL * POOL * d)
+        ops = b * 2 * (POOL + 1) * (POOL + 2) // 2 * q.shape[1]  # the Gram
         bms, by = bound(n_bytes, ops)
+        seq = {}
+        for name, fn in (("split", split_sequence),
+                         ("one launch", lambda q, i, v: fused_rerank(
+                             q, i, v, K, K, 60.0, 0.98))):
+            counts = {}
+            times = device_times(lambda: fn(q, ids, vecs), 20, counts=counts)
+            seq[name] = {"ms": timer(lambda: fn(q, ids, vecs)),
+                         "device_us": sum(times.values()),
+                         "launches": sum(counts.values())}
         rec[f"B={b}"] = {
             "ms": timer(lambda: fused_rerank(q, ids, vecs, K, K, 60.0,
                                              0.98)),
             "plain_ms": timer(lambda: fused_rerank_plain(q, ids, vecs, K, K,
                                                          60.0, 0.98)),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: fused_rerank(q, ids, vecs, K, K, 60.0, 0.98), 20),
-                ("fused_kernel",))}
-    return res
+            "kernel_device_us": one_launch_us(
+                "fused_rerank",
+                lambda: fused_rerank(q, ids, vecs, K, K, 60.0, 0.98),
+                FUSED_KERNEL),
+            "scores_only_device_us": one_launch_us(
+                "fused_scores",
+                lambda: fused_scores(q, ids, vecs, K, 60.0, 0.98),
+                FUSED_KERNEL),
+            "split_vs_one_launch": seq}
+    return rec
 
 
 def check_decode_attention(dev, timer) -> dict:
@@ -1011,29 +1161,80 @@ def profile_window(step, window, restore=None) -> dict:
     wall_us = (time.perf_counter() - t0) * 1e6 / len(window)
     if restore is not None:
         restore()
-    times = device_times(lambda: [step(q) for q in window], 1, warm=False)
+    counts = {}
+    times = device_times(lambda: [step(q) for q in window], 1, warm=False,
+                         counts=counts)
     busy = sum(times.values()) / len(window)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     return {"steps": len(window), "accepted": int(accepted),
             "wall_us_per_step": wall_us, "device_busy_us_per_step": busy,
             "device_idle_share": 1.0 - busy / wall_us,
+            "device_ops_per_step": sum(counts.values()) / len(window),
             "top_kernels_us_per_step": {k[:90]: v / len(window)
                                         for k, v in top}}
 
 
-def profile_has(has, window, with_terms: bool) -> dict:
-    """The HaS engine's window, from one cache snapshot both times."""
+@contextlib.contextmanager
+def split_sequences():
+    """The split launches around the same kernels: validation as the
+    scores, then first_argmax and a gather; the cloud stage's fusion as the
+    per-slot scores, then the reference's two stable sorts and gathers."""
+    from repro_torch.core import has
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_rerank import (final_topk, fused_scores,
+                                                  fused_scores_plain)
+    from repro_torch.retrieval import fusion
+    from repro_torch.utils import first_argmax
+
+    def validate(draft, cache, valid, row_group=None, q_group=None,
+                 draft_weights=None, backend=None):
+        scores = ops.homology_score_op(draft, cache, valid, row_group,
+                                       q_group, draft_weights,
+                                       backend=backend)
+        slot = first_argmax(scores)
+        return (scores, torch.gather(scores, 1, slot[:, None])[:, 0],
+                slot.to(torch.int32))
+
+    def rerank(queries, pool_ids, pool_vecs, kd, k, rrf_k=60.0,
+               diversify_sim=None, backend=None):
+        fn = fused_scores_plain if backend == "torch" else fused_scores
+        return final_topk(*fn(queries, pool_ids, pool_vecs, kd, rrf_k,
+                              diversify_sim), pool_ids, k)
+
+    saved = has.homology_validate_op, fusion.fused_rerank_op
+    has.homology_validate_op, fusion.fused_rerank_op = validate, rerank
+    try:
+        yield
+    finally:
+        has.homology_validate_op, fusion.fused_rerank_op = saved
+
+
+def profile_both(step, window, restore=None) -> tuple[dict, dict]:
+    """The window as the port runs it, then split (``split_sequences``),
+    each from the same cache snapshot."""
+    if restore is not None:
+        restore()
+    new = profile_window(step, window, restore)
+    if restore is not None:
+        restore()
+    with split_sequences():
+        split = profile_window(step, window, restore)
+    return new, split
+
+
+def profile_has(has, window, with_terms: bool) -> tuple[dict, dict]:
+    """The HaS engine's window, as is and split, from one cache snapshot."""
     snap = snapshot(has.state)
 
     def restore():
-        has.state = snap
+        has.state = snapshot(snap)
 
     if with_terms:
-        return profile_window(
+        return profile_both(
             lambda q: has.step(q["emb"], q_terms=q["terms"],
                                q_term_weights=q["term_weights"]),
             window, restore)
-    return profile_window(lambda q: has.step(q["emb"]), window, restore)
+    return profile_both(lambda q: has.step(q["emb"]), window, restore)
 
 
 def check_steps(what, steps, summary):
@@ -1091,7 +1292,8 @@ def algorithm1_path(dev, world, queries, counters) -> dict:
     check_steps("main path", steps, info["has"])
 
     window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
-    info["profile"] = profile_has(has, window, with_terms=False)
+    info["profile"], info["profile_split"] = profile_has(has, window,
+                                                       with_terms=False)
     del steps[HAS_QUERIES:]             # drop the profiled window's steps
 
     # the same queries through the plain backend, same index
@@ -1200,10 +1402,11 @@ def hybrid_path(dev, world, queries, index, counters) -> dict:
     check_steps("hybrid path", steps, info["has"])
 
     window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
-    info["profile"] = profile_has(has, window, with_terms=True)
+    info["profile"], info["profile_split"] = profile_has(has, window,
+                                                       with_terms=True)
     del steps[HAS_QUERIES:]
     # the cloud stage alone: one full_search per fresh query
-    info["profile_cloud"] = profile_window(
+    info["profile_cloud"], info["profile_cloud_split"] = profile_both(
         lambda q: (service.full_search(q["emb"], q["terms"],
                                        q["term_weights"]), False), window)
 
@@ -1400,6 +1603,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels import fused_rerank_probe as fr_probe
     from repro_torch.kernels.fused_rerank import fused_scores
     from repro_torch.kernels.homology_score import homology_score
     from repro_torch.kernels.ivf_scan import ivf_scan
@@ -1430,9 +1634,12 @@ def main() -> int:
     if tf32["cuda.matmul.allow_tf32"]:
         raise AssertionError("TF32 matmul is on; the port needs full f32")
 
-    # phase 2: build
+    # phase 2: build (and fused_rerank's traced variant for its probe)
     t0 = time.perf_counter()
-    paths = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        traced = pool.submit(fr_probe.build_traced)
+        paths = _build.build_all()
+        traced = traced.result()
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s: "
         f"{sorted(p.name for p in paths.values())}")
@@ -1458,6 +1665,8 @@ def main() -> int:
     kres = check_kernels(dev, timer)
     torch.cuda.empty_cache()
     kres.update(check_hybrid_kernels(dev, timer))
+    kres["fused_rerank"]["trace_us"] = {
+        f"B={b}": fr_probe.trace_phases(traced, dev, b) for b in (1, 64)}
     torch.cuda.empty_cache()
     kres.update(check_decode_attention(dev, timer))
     torch.cuda.empty_cache()
@@ -1468,8 +1677,12 @@ def main() -> int:
     log(f"tolerance vs plain: scores within {SCORE_TOL} (f32 sums in "
         f"another order), ids equal except swaps of candidates whose "
         f"scores lie within it; unweighted homology, lexical scores and "
-        f"ids, fused masses and the EmbeddingBag bit-equal; weighted "
-        f"homology within 1e-6; decode attention within {DECODE_TOL} "
+        f"ids, fused masses and vals, homology best and slot and the "
+        f"EmbeddingBag bit-equal; weighted homology within 1e-6 (best and "
+        f"slot bit-equal for weights in 1/64ths); fused ids equal except "
+        f"between equal masses whose rscores lie within {SCORE_TOL} and in "
+        f"rows with a cosine within 1e-5 of the threshold; decode "
+        f"attention within {DECODE_TOL} "
         f"(rtol and atol)")
     for name, r in kres.items():
         for key, t in r.items():
@@ -1483,6 +1696,20 @@ def main() -> int:
                 f"{t['kernel_device_us']:.1f} us (profiler); max_abs_err "
                 f"{r['max_abs_err']:.3g}, near-tie swaps "
                 f"{r.get('swaps', 0)}")
+    for name, key in (("homology_score", "validation_to_accept"),
+                      ("fused_rerank", "split_vs_one_launch")):
+        for b in (1, 64):
+            t = kres[name][f"B={b}"]
+            log(f"{name} B={b}: one launch a call; kernel alone "
+                f"{t['kernel_device_us']:.2f} us, scores only "
+                f"{t['scores_only_device_us']:.2f} us (profiler); " + "; ".join(
+                    f"{seq} sequence {v['ms']:.4f} ms, device "
+                    f"{v['device_us']:.2f} us, {v['launches']:.0f} launches"
+                    for seq, v in t[key].items()))
+    for b, ph in kres["fused_rerank"]["trace_us"].items():
+        log(f"fused_rerank probe ({FUSED_KERNEL} phases, -DFUSED_RERANK_TRACE,"
+            f" {b}, P={POOL}, d=768, diversify 0.98), us: " + "; ".join(
+                f"{k} {v:.3f}" for k, v in ph.items()))
     log(f"embedding_bag lookup path: {bag_path['batches']} batches of "
         f"{BAG_BATCH} through embedding_bag_op, launches "
         f"{bag_path['launches']['embedding_bag']}")
@@ -1505,20 +1732,18 @@ def main() -> int:
             f"{s['doc_hit_rate']:.4f}, RA {s['ra_qwen3-8b']:.4f}; "
             f"{HAS_QUERIES} queries in {r['has_serve_s']:.1f} s")
         log(f"[{title}] launches: {r['launches']}")
-        pr = r["profile"]
-        log(f"[{title}] window of {pr['steps']} fresh queries "
-            f"({pr['accepted']} accepted): {pr['wall_us_per_step']:.1f} "
-            f"us/step wall, device busy {pr['device_busy_us_per_step']:.1f} "
-            f"us/step (profiler), idle share {pr['device_idle_share']:.3f}; "
-            f"top kernels us/step: "
-            f"{json.dumps(pr['top_kernels_us_per_step'])}")
-        if "profile_cloud" in r:
-            pc = r["profile_cloud"]
-            log(f"[{title}] cloud stage alone, {pc['steps']} queries: "
-                f"{pc['wall_us_per_step']:.1f} us/query wall, device busy "
-                f"{pc['device_busy_us_per_step']:.1f} us/query, idle share "
-                f"{pc['device_idle_share']:.3f}; top kernels us/query: "
-                f"{json.dumps(pc['top_kernels_us_per_step'])}")
+        for key, what in (("profile", "window of 100 fresh queries"),
+                          ("profile_cloud", "cloud stage alone, 100 queries")):
+            if key not in r:
+                continue
+            for tag, pr in (("", r[key]), (" (split)",
+                                           r[key + "_split"])):
+                log(f"[{title}] {what}{tag} ({pr['accepted']} accepted): "
+                    f"{pr['wall_us_per_step']:.1f} us/step wall, device busy "
+                    f"{pr['device_busy_us_per_step']:.1f} us/step (profiler), "
+                    f"{pr['device_ops_per_step']:.1f} device ops/step, idle "
+                    f"share {pr['device_idle_share']:.3f}; top kernels "
+                    f"us/step: {json.dumps(pr['top_kernels_us_per_step'])}")
         log(f"[{title}] replay ({r['replay']['queries']} queries, "
             f"backend=torch): accept bits equal, near-tie id swaps "
             f"{r['replay']['near_tie_swaps']}")

@@ -12,7 +12,8 @@ The state lives in fixed-shape tensors on one device:
 channel merge and homology validation behind ``backend="cuda" | "torch"``
 (``kernels/ops.py``).  ``"cuda"`` sends the cache channel to the
 ``topk_search`` kernel, the fuzzy channel's bucket scan to ``ivf_scan`` and
-validation to ``homology_score``; ``"torch"`` runs their plain versions.
+validation, with its best row, to ``homology_validate`` (the
+``homology_score`` kernel); ``"torch"`` runs their plain versions.
 ``None`` follows the state's device.  ``cache_update`` folds one full
 retrieval into the rings (Algorithm 1 line 16); ``cache_update_batched``
 folds several in order.
@@ -35,11 +36,10 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.core.homology import rrf_draft_weights
-from repro_torch.kernels.ops import (homology_score_op, ivf_scan_op,
-                                     check_backend, topk_search_op)
+from repro_torch.kernels.ops import (check_backend, homology_validate_op,
+                                     ivf_scan_op, topk_search_op)
 from repro_torch.retrieval.ivf import IVFIndex, probe_buckets
-from repro_torch.utils import (as_f32, as_i32, first_argmax, resolve_device,
-                               stable_topk)
+from repro_torch.utils import as_f32, as_i32, resolve_device, stable_topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,15 +176,15 @@ def speculate_batch(cfg: HasConfig, state: HasState, index: IVFIndex,
 
     w_val = rrf_draft_weights(i_val, cfg.rrf_k) \
         if cfg.fusion == "rrf" else None
-    scores = homology_score_op(i_val, state.query_doc_ids, state.query_valid,
-                               draft_weights=w_val, backend=backend)
-    slot = first_argmax(scores)                                # [B]
-    best = torch.gather(scores, 1, slot[:, None])[:, 0]
+    # each draft's first maximal row and its score (one launch on CUDA)
+    _, best, slot = homology_validate_op(i_val, state.query_doc_ids,
+                                         state.query_valid,
+                                         draft_weights=w_val, backend=backend)
     accept = best > torch.tensor(cfg.tau, dtype=torch.float32)
 
     return {"draft_ids": i_out, "draft_scores": s_out,
             "val_ids": i_val, "accept": accept,
-            "homology": best, "matched_slot": slot.to(torch.int32)}
+            "homology": best, "matched_slot": slot}
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,10 @@ def homology_scores_batched(draft_ids: torch.Tensor,
     -> scores [B,H] f32 in [0, 1]."""
     k = draft_ids.shape[1]
     overlap = _hits(draft_ids, cache_doc_ids).sum(dim=2)
-    s = overlap.to(torch.float32) / k
+    # a divisor on the device: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, and 9 * (1/10) is not 9/10 in f32
+    k_dev = torch.tensor(k, dtype=torch.float32, device=overlap.device)
+    s = overlap.to(torch.float32) / k_dev
     return torch.where(cache_valid.bool(), s, 0.0)
 
 

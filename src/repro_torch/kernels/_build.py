@@ -47,14 +47,16 @@ SIGNATURES = {
         "has_ivf_scan": [_P] * 11 + [_I] * 8 + [_P],
     },
     "homology_score": {
-        "has_homology_score": [_P] * 7 + [_I] * 3 + [_P],
+        "has_homology_score": [_P] * 11 + [_I] * 4 + [_P],
+        "has_homology_rows_per_cta": [],
     },
     "lexical_score": {
         "has_lexical_tiles": [_P] * 7 + [_I] * 6 + [_P],
         "has_lexical_merge": [_P] * 5 + [_I] * 3 + [_P],
     },
     "fused_rerank": {
-        "has_fused_rerank": [_P] * 5 + [_I] * 4 + [_F, _I, _F, _P],
+        "has_fused_rerank": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _P],
+        "has_fused_rerank_smem": [_I] * 2,
     },
     "decode_attention": {
         "has_decode_attention": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 9
@@ -132,6 +134,36 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def build_variants(name: str, variants: dict[str, tuple[str, list[str]]],
+                   out: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Build variants of kernel ``name`` for the probes: every (source
+    text, extra nvcc flags) at once, each loaded with ``name``'s
+    signatures; -> {variant: (CDLL, nvcc's output)}."""
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for i, (var, (src, flags)) in enumerate(variants.items()):
+        cu = out / f"{name}_v{i}.cu"
+        cu.write_text(src)
+        so = out / f"{name}_v{i}.so"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(so),
+               str(cu)]
+        procs[var] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
+    libs = {}
+    for var, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} ({var}):\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[var] = (lib, log)
+    return libs
 
 
 def ptr(t: torch.Tensor | None):

@@ -1,7 +1,9 @@
 """RRF fusion + near-duplicate diversification + rerank of a hybrid pool.
 
-``fused_scores`` replaces the Pallas kernel
-``src/repro/kernels/fused_rerank.py::_fused_kernel``.  Per query, over a
+``fused_rerank`` replaces the Pallas kernel
+``src/repro/kernels/fused_rerank.py::_fused_kernel`` and the final sort
+``_final_topk`` the reference runs after it; ``fused_scores`` is the
+kernel's per-slot scores alone.  Per query, over a
 pool of ``kd`` dense slots then ``kl`` lexical slots (``-1`` = invalid,
 zero vector):
 
@@ -21,12 +23,16 @@ slot asc) and slices the top-k, as the reference does outside its kernel
 with two stable argsorts.  The masses are bit-equal across versions; the
 rscores and cosines are f32 sums of d products taken in another order.
 
-On a CUDA tensor ``fused_scores`` launches the kernel of
-``csrc/fused_rerank.cu`` (one block per query) and raises if that fails;
-on a CPU tensor it runs :func:`fused_scores_plain`.
-``fused_scores.launches`` counts the kernel's launches (one per call).
+On a CUDA tensor ``fused_rerank`` and ``fused_scores`` launch the kernel of
+``csrc/fused_rerank.cu`` once (one CTA per query, the final top-k in the
+same launch: ``fused_rerank`` returns its ``vals, ids`` with no sort or
+gather after it) and raise if that fails; on a CPU tensor they run the
+plain versions.  ``fused_scores.launches`` counts the kernel's launches,
+one per call of either.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,7 +40,9 @@ from repro_torch.kernels import _build
 from repro_torch.utils import first_argmax
 
 MAX_POOL = 64          # the greedy pass holds two slots per lane of a warp
-SMEM_LIMIT = 227 * 1024
+# dynamic shared memory a block may opt into, less the kernel's static
+# arrays (1,792 bytes)
+SMEM_LIMIT = 227 * 1024 - 2048
 
 
 def _check_pool(pool_ids, kd: int) -> None:
@@ -101,13 +109,16 @@ def final_topk(sel_mass: torch.Tensor, rscore: torch.Tensor,
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
-def fused_scores(queries: torch.Tensor, pool_ids: torch.Tensor,
-                 pool_vecs: torch.Tensor, kd: int, rrf_k: float = 60.0,
-                 diversify_sim: float | None = None):
-    """Same contract as :func:`fused_scores_plain`; the kernel on CUDA."""
-    if queries.device.type != "cuda":
-        return fused_scores_plain(queries, pool_ids, pool_vecs, kd, rrf_k,
-                                  diversify_sim)
+@functools.lru_cache(maxsize=256)
+def _smem(p: int, d: int) -> int:
+    """Dynamic shared memory of the kernel's block for P slots of width d."""
+    return _build.library("fused_rerank").has_fused_rerank_smem(p, d)
+
+
+def _launch(queries, pool_ids, pool_vecs, kd: int, k: int | None,
+            rrf_k: float, diversify_sim: float | None):
+    """One kernel launch: -> (mass, rscore) when ``k`` is None, else
+    (vals [B, min(k, P)], ids)."""
     _check_pool(pool_ids, kd)
     b, p = pool_ids.shape
     d = queries.shape[1]
@@ -115,27 +126,48 @@ def fused_scores(queries: torch.Tensor, pool_ids: torch.Tensor,
         raise ValueError(
             f"fused_rerank: queries {tuple(queries.shape)}, pool_ids "
             f"{tuple(pool_ids.shape)}, pool_vecs {tuple(pool_vecs.shape)}")
-    div = diversify_sim is not None
-    smem = 4 * (d + 4 * p + p * d + (p * p if div else 0))
-    if p > MAX_POOL or smem > SMEM_LIMIT:
+    if k is not None and k < 1 or d < 1:
+        raise ValueError(f"fused_rerank: k and d must be >= 1, got k={k}, "
+                         f"d={d}")
+    lib = _build.library("fused_rerank")
+    if p > MAX_POOL or (p and _smem(p, d) > SMEM_LIMIT):
         raise ValueError(f"fused_rerank: a pool of {p} x d={d} does not fit "
                          f"one block (at most {MAX_POOL} slots)")
     q = queries.float().contiguous()
     ids = pool_ids.to(torch.int32).contiguous()
     vecs = pool_vecs.float().contiguous()
     dev = _build.check_operands("fused_rerank", q, ids, vecs)
-    mass = torch.empty((b, p), dtype=torch.float32, device=dev)
-    rscore = torch.empty((b, p), dtype=torch.float32, device=dev)
+    if k is None:
+        outs = (torch.empty((b, p), dtype=torch.float32, device=dev),
+                torch.empty((b, p), dtype=torch.float32, device=dev))
+        mass, rscore, vals, out_ids = *outs, None, None
+        kk = 0
+    else:
+        kk = min(k, p)
+        outs = (torch.empty((b, kk), dtype=torch.float32, device=dev),
+                torch.empty((b, kk), dtype=torch.int32, device=dev))
+        mass, rscore, (vals, out_ids) = None, None, outs
     if b == 0 or p == 0:
-        return mass, rscore
-    lib = _build.library("fused_rerank")
+        return outs
+    div = diversify_sim is not None
     _build.check(lib.has_fused_rerank(
         _build.ptr(q), _build.ptr(ids), _build.ptr(vecs), _build.ptr(mass),
-        _build.ptr(rscore), b, p, kd, d, float(rrf_k), int(div),
-        float(diversify_sim) if div else 0.0, _build.stream(dev)),
-        "fused_rerank")
+        _build.ptr(rscore), _build.ptr(vals), _build.ptr(out_ids), b, p, kd,
+        d, kk, float(rrf_k), int(div), float(diversify_sim) if div else 0.0,
+        _build.stream(dev)), "fused_rerank")
     fused_scores.launches += 1
-    return mass, rscore
+    return outs
+
+
+def fused_scores(queries: torch.Tensor, pool_ids: torch.Tensor,
+                 pool_vecs: torch.Tensor, kd: int, rrf_k: float = 60.0,
+                 diversify_sim: float | None = None):
+    """Same contract as :func:`fused_scores_plain`; the kernel on CUDA."""
+    if queries.device.type != "cuda":
+        return fused_scores_plain(queries, pool_ids, pool_vecs, kd, rrf_k,
+                                  diversify_sim)
+    return _launch(queries, pool_ids, pool_vecs, kd, None, rrf_k,
+                   diversify_sim)
 
 
 fused_scores.launches = 0
@@ -153,7 +185,9 @@ def fused_rerank_plain(queries, pool_ids, pool_vecs, kd: int, k: int,
 
 def fused_rerank(queries, pool_ids, pool_vecs, kd: int, k: int,
                  rrf_k: float = 60.0, diversify_sim: float | None = None):
-    """Same contract as :func:`fused_rerank_plain`; the kernel on CUDA."""
-    return final_topk(*fused_scores(queries, pool_ids, pool_vecs, kd, rrf_k,
-                                    diversify_sim),
-                      pool_ids, k)
+    """Same contract as :func:`fused_rerank_plain`; on CUDA one launch that
+    also makes the final top-k."""
+    if queries.device.type != "cuda":
+        return fused_rerank_plain(queries, pool_ids, pool_vecs, kd, k, rrf_k,
+                                  diversify_sim)
+    return _launch(queries, pool_ids, pool_vecs, kd, k, rrf_k, diversify_sim)

@@ -24,7 +24,6 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
@@ -35,31 +34,6 @@ BOUNDS_LINE = "__launch_bounds__(kThreads, kRoute >= kI8Wide ? 4 : 1)"
 PHASES = ("init", "phase A (ids, q)", "phase B (rows)", "select",
           "list write", "arrive", "stage lists", "merge level 1",
           "merge level 2", "id lookup")
-
-
-def _build_variants(variants: dict[str, tuple[str, list[str]]], out: Path):
-    """nvcc every (source, extra flags) at once; name -> (CDLL, log)."""
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, (src, flags)) in enumerate(variants.items()):
-        cu = out / f"v{i}.cu"
-        cu.write_text(src)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
-               str(_build.CSRC), "-o", str(out / f"v{i}.so"), str(cu)]
-        procs[name] = (out / f"v{i}.so", subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES["ivf_scan"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = (lib, log)
-    return libs
 
 
 def _device_us(fn, reps: int = 20) -> float:
@@ -152,7 +126,8 @@ def main() -> int:
     for n in (1, 3, 4):
         variants[f"every route {n} CTA(s) per SM"] = (src.replace(
             BOUNDS_LINE, f"__launch_bounds__(kThreads, {n})"), [])
-    libs = _build_variants(variants, _build.BUILD_ROOT / "probe")
+    libs = _build.build_variants("ivf_scan", variants,
+                                 _build.BUILD_ROOT / "probe")
     cases = _cases(dev)
     saved = ivf.CTAS_PER_SM
     try:

@@ -17,7 +17,9 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_plain)
 from repro_torch.kernels.fused_rerank import fused_rerank, fused_rerank_plain
 from repro_torch.kernels.homology_score import (homology_score,
-                                                homology_score_plain)
+                                                homology_score_plain,
+                                                homology_validate,
+                                                homology_validate_plain)
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
 from repro_torch.kernels.lexical_score import (lexical_score,
                                                lexical_score_plain)
@@ -53,6 +55,15 @@ def homology_score_op(draft_ids, cache_doc_ids, cache_valid, row_group=None,
                       backend: str | None = None):
     fn = (homology_score_plain if check_backend(backend) == "torch"
           else homology_score)
+    return fn(draft_ids, cache_doc_ids, cache_valid, row_group, q_group,
+              draft_weights)
+
+
+def homology_validate_op(draft_ids, cache_doc_ids, cache_valid,
+                         row_group=None, q_group=None, draft_weights=None,
+                         backend: str | None = None):
+    fn = (homology_validate_plain if check_backend(backend) == "torch"
+          else homology_validate)
     return fn(draft_ids, cache_doc_ids, cache_valid, row_group, q_group,
               draft_weights)
 

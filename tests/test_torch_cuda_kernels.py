@@ -8,7 +8,8 @@ only PyTorch:
 
 Scores must agree to 1e-5 (f32 sums of 768 products taken in another
 order); ids must be equal except swaps between candidates whose scores lie
-within that tolerance; unweighted homology scores must be bit-equal.
+within that tolerance; unweighted homology scores, and each draft's best
+score and row, must be bit-equal.
 Decode attention agrees to 2e-5 (f32 softmax sums in another order, the
 reference's own f32 tolerance); the EmbeddingBag is bit-equal.
 """
@@ -20,10 +21,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_plain)
-from repro_torch.kernels.fused_rerank import (final_topk, fused_scores,
+from repro_torch.kernels.fused_rerank import (fused_rerank,
+                                              fused_rerank_plain,
+                                              fused_scores,
                                               fused_scores_plain)
 from repro_torch.kernels.homology_score import (homology_score,
-                                                homology_score_plain)
+                                                homology_validate,
+                                                homology_validate_plain)
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
 from repro_torch.kernels.lexical_score import (lexical_score,
@@ -94,25 +98,115 @@ def test_cuda_topk_search_vs_plain(cuda_dev, b, n, groups, k):
     assert _near_tie_ok(v0, i0, i1)
 
 
+def _homology_inputs(rng, b, h, k, weights, groups, dev):
+    """Drafts [B,k] and a cache [H,k] of ids from a small range (real
+    overlaps, -1 slots in both), 90% valid rows; weights None, "dyadic"
+    (multiples of 1/64: sums exact in any order) or "random"."""
+    draft = rng.integers(-1, 60, (b, k)).astype(np.int32)
+    cache = rng.integers(-1, 60, (h, k)).astype(np.int32)
+    valid = rng.random(h) < 0.9
+    w = None
+    if weights == "dyadic":
+        w = rng.integers(0, 9, (b, k)).astype(np.float32) / 64
+    elif weights == "random":
+        w = rng.random((b, k)).astype(np.float32)
+    kw = {}
+    if groups:
+        kw = dict(row_group=_t(rng.integers(0, 3, h).astype(np.int32)),
+                  q_group=_t(rng.integers(0, 3, b).astype(np.int32)))
+    args = [_t(x).to(dev) for x in (draft, cache, valid)]
+    kw = {n: x.to(dev) for n, x in kw.items()}
+    if w is not None:
+        kw["draft_weights"] = _t(w).to(dev)
+    return args, kw
+
+
+def _check_validate(got, want, exact):
+    """homology_validate (scores, best, slot) against the plain version:
+    scores bit-equal (within 1e-6 when not exact), best and slot equal
+    (when not exact: the kernel's slot holds a score within 1e-6 of the
+    plain best)."""
+    (s1, b1, t1), (s0, b0, t0) = got, want
+    assert t1.dtype == torch.int32 and b1.dtype == torch.float32
+    if exact:
+        assert torch.equal(s1, s0) and torch.equal(b1, b0)
+        assert torch.equal(t1, t0)
+        return
+    torch.testing.assert_close(s1, s0, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(b1, b0, rtol=1e-6, atol=1e-6)
+    at = torch.gather(s0, 1, t1.long()[:, None])[:, 0]
+    assert bool(((at - b0).abs() <= 1e-6).all())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("weighted,groups", [(False, False), (True, True)])
-def test_cuda_homology_score_vs_plain(cuda_dev, weighted, groups):
-    rng = np.random.default_rng(7)
-    b, h, k = 64, 5000, 10
-    draft = _t(rng.integers(-1, 500, (b, k)).astype(np.int32)).to(cuda_dev)
-    cache = _t(rng.integers(-1, 500, (h, k)).astype(np.int32)).to(cuda_dev)
-    valid = _t(rng.random(h) < 0.9).to(cuda_dev)
-    w = _t(rng.random((b, k)).astype(np.float32)).to(cuda_dev) \
-        if weighted else None
-    kw = {} if not groups else dict(
-        row_group=_t(rng.integers(0, 2, h).astype(np.int32)).to(cuda_dev),
-        q_group=_t(rng.integers(0, 2, b).astype(np.int32)).to(cuda_dev))
-    s0 = homology_score_plain(draft, cache, valid, draft_weights=w, **kw)
-    s1 = homology_score(draft, cache, valid, draft_weights=w, **kw)
-    if weighted:
-        torch.testing.assert_close(s1, s0, rtol=1e-6, atol=1e-6)
-    else:
-        assert torch.equal(s1, s0)
+@pytest.mark.parametrize("weights,groups", [(None, False), ("dyadic", True),
+                                            ("random", False)])
+@pytest.mark.parametrize("k", [1, 10, 32, 7])
+@pytest.mark.parametrize("b", [1, 64, 200])
+def test_cuda_homology_score_vs_plain(cuda_dev, b, k, weights, groups):
+    """homology_score and homology_validate against their plain versions
+    at B 1, 64 and 200, the templated widths k = 1, 10, 32 and the generic
+    route (k = 7), weighted and grouped: one launch a call each."""
+    rng = np.random.default_rng(b * 100 + k)
+    args, kw = _homology_inputs(rng, b, 5000, k, weights, groups, cuda_dev)
+    exact = weights != "random"
+    n0 = homology_score.launches
+    s1 = homology_score(*args, **kw)
+    got = homology_validate(*args, **kw)
+    assert homology_score.launches == n0 + 2
+    want = homology_validate_plain(*args, **kw)
+    if exact:
+        assert torch.equal(s1, want[0])
+    _check_validate(got, want, exact)
+
+
+@pytest.mark.cuda
+def test_cuda_homology_validate_ties_and_empty(cuda_dev):
+    """Equal best scores in rows far apart (other CTAs, other warps) go to
+    the lowest row; a table of invalid rows gives slot 0 and best 0."""
+    b, h, k = 5, 5000, 10
+    cache = torch.full((h, k), -1, dtype=torch.int32, device=cuda_dev)
+    draft = torch.arange(b * k, dtype=torch.int32,
+                         device=cuda_dev).reshape(b, k)
+    for row, (rows, hits) in enumerate([((4999, 130, 3001), 3),
+                                        ((128, 127), 5), ((4000, 4999), 10),
+                                        ((), 0), ((0, 2500), 1)]):
+        for r in rows:
+            cache[r, :hits] = draft[row, :hits]
+    valid = torch.ones(h, dtype=torch.bool, device=cuda_dev)
+    got = homology_validate(draft, cache, valid)
+    _check_validate(got, homology_validate_plain(draft, cache, valid), True)
+    assert got[2].tolist() == [130, 127, 4000, 0, 0]
+    none = torch.zeros(h, dtype=torch.bool, device=cuda_dev)
+    s, best, slot = homology_validate(draft, cache, none)
+    assert not s.any() and not best.any() and not slot.any()
+
+
+@pytest.mark.cuda
+def test_cuda_homology_validate_back_to_back_and_two_streams(cuda_dev):
+    """200 calls on one stream repeat the first and leave every ticket at
+    zero; calls on two streams at once each match the plain version."""
+    rng = np.random.default_rng(17)
+    args, kw = _homology_inputs(rng, 64, 5000, 10, None, False, cuda_dev)
+    first = homology_validate(*args, **kw)
+    for _ in range(199):
+        last = homology_validate(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, last))
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "homology_score":
+            assert not buf[:n_tickets].view(torch.int32).any()
+    cases = [_homology_inputs(rng, b, 5000, 10, None, False, cuda_dev)
+             for b in (1, 65)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = []
+    for st, (a, kw_) in zip(streams, cases):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(homology_validate(*a, **kw_))
+    torch.cuda.synchronize()
+    for (a, kw_), got in zip(cases, outs):
+        _check_validate(got, homology_validate_plain(*a, **kw_), True)
 
 
 @pytest.mark.cuda
@@ -301,28 +395,67 @@ def test_cuda_lexical_score_vs_plain(cuda_dev, b, n, vocab, tile_n):
     assert torch.equal(v1, v0) and torch.equal(i1, i0)
 
 
+def _fused_pool(rng, b, p, d=768):
+    """A pool of p slots (kd = p // 2): ids from a small range (repeats
+    within and across channels), row 0 empty, row 1's lexical list the
+    dense one, near-duplicate pairs (slots 2, 3 and 2, kd + 2), zero
+    vectors on invalid slots."""
+    kd = p // 2
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    ids = rng.integers(0, 2 * p, size=(b, p)).astype(np.int32)
+    ids[rng.random((b, p)) < 0.1] = -1
+    ids[0] = -1
+    if b > 1 and p > 1:
+        ids[1, kd:kd + kd] = ids[1, :kd]
+    vecs = rng.normal(size=(b, p, d)).astype(np.float32)
+    if p > 3:
+        vecs[:, 3] = vecs[:, 2] + 0.05 * rng.normal(size=(b, d))
+    if 2 < kd < p - 2:      # equal masses, near-duplicates: the tie decides
+        vecs[:, kd + 2] = vecs[:, 2] + 0.05 * rng.normal(size=(b, d))
+    vecs[ids < 0] = 0.0
+    return q, ids, vecs, kd
+
+
+def _near_threshold_rows(vecs, dsim, tol=1e-5):
+    """Rows with a cosine within tol of dsim (f64): their keep decisions
+    may differ between f32 sums taken in another order."""
+    if dsim is None:
+        return torch.zeros(vecs.shape[0], dtype=torch.bool)
+    v = vecs.double().cpu()
+    vn = v / v.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    return ((vn @ vn.transpose(1, 2) - dsim).abs() <= tol).flatten(1) \
+        .any(dim=1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dsim", [None, 0.5, 0.98])
-def test_cuda_fused_rerank_vs_plain(cuda_dev, dsim):
-    rng = np.random.default_rng(5)
-    b, d, kd, kl = 64, 768, 10, 10
-    q = rng.normal(size=(b, d)).astype(np.float32)
-    ids = rng.integers(0, 40, size=(b, kd + kl)).astype(np.int32)
-    ids[0] = -1
-    ids[1, kd:] = ids[1, :kl]
-    ids[2, 3] = -1
-    vecs = rng.normal(size=(b, kd + kl, d)).astype(np.float32)
-    vecs[ids < 0] = 0.0
+@pytest.mark.parametrize("b,p,k", [(1, 20, 10), (64, 20, 10), (65, 20, 10),
+                                   (64, 1, 10), (7, 64, 10), (64, 64, 1),
+                                   (3, 20, 25), (2, 64, 100), (1, 1, 1)])
+def test_cuda_fused_rerank_vs_plain(cuda_dev, b, p, k, dsim):
+    """fused_scores and fused_rerank (one launch each, the final top-k in
+    it) against the plain versions: masses bit-equal, rscores within 1e-4
+    of f32 sums of 768 products, vals equal, ids equal except between
+    equal masses whose rscores lie within 1e-4 (and rows with a cosine
+    within 1e-5 of dsim, whose keep decisions may differ)."""
+    rng = np.random.default_rng(b * 1000 + p * 10 + k)
+    q, ids, vecs, kd = _fused_pool(rng, b, p)
     args = [_t(x).to(cuda_dev) for x in (q, ids, vecs)]
-    m0, r0 = fused_scores_plain(*args, kd, 60.0, dsim)
+    exempt = _near_threshold_rows(args[2], dsim)
+    n0 = fused_scores.launches
     m1, r1 = fused_scores(*args, kd, 60.0, dsim)
-    assert torch.equal(m1, m0)
+    v1, i1 = fused_rerank(*args, kd, k, 60.0, dsim)
+    assert fused_scores.launches == n0 + 2
+    m0, r0 = fused_scores_plain(*args, kd, 60.0, dsim)
+    v0, i0 = fused_rerank_plain(*args, kd, k, 60.0, dsim)
+    assert v1.shape == v0.shape == (b, min(k, p)) and i1.dtype == torch.int32
     torch.testing.assert_close(r1, r0, rtol=1e-5, atol=1e-4)
-    v0, i0 = final_topk(m0, r0, args[1], 10)
-    v1, i1 = final_topk(m1, r1, args[1], 10)
-    assert torch.equal(v1, v0)
+    keep = ~exempt.to(cuda_dev)
+    assert torch.equal(m1[keep], m0[keep]) and torch.equal(v1[keep], v0[keep])
     # ids may differ only between equal masses whose rscores nearly tie
     for row, j in (i1 != i0).nonzero().tolist():
+        if exempt[row]:
+            continue
         same = (v0[row] == v0[row, j]).nonzero()[:, 0]
         rs = r0[row][torch.isin(args[1][row], i0[row, same])]
         assert float(rs.max() - rs.min()) <= 1e-4

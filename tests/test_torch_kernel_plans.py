@@ -3,14 +3,15 @@
 The kernels themselves run only on the card (``test_torch_cuda_kernels.py``);
 how their wrappers cut the work is plain Python and is checked here:
 decode_attention's chunks of the cache and its kernel route,
-topk_search's query tiles and even row ranges, and ivf_scan's row ranges
-over each query's probed pool.  Every position, row and query must be
-covered exactly once.
+topk_search's query tiles and even row ranges, ivf_scan's row ranges
+over each query's probed pool, and homology_score's tiles of cached rows
+by drafts.  Every position, row and query must be covered exactly once.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import homology_score as HS
 from repro_torch.kernels import ivf_scan as IS
 from repro_torch.kernels import topk_search as TS
 
@@ -128,3 +129,30 @@ def test_ivf_ranges_cover_the_pool_once(b, p, cap, k, sms):
     if b == 1 and n >= IS.MIN_RANGE_ROWS * sms:
         assert n_ranges >= min(sms, IS.MAX_RANGES)
     assert b * n_ranges <= IS.CTAS_PER_SM * sms + b   # ~4 CTAs per SM
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("k", [1, 10, 32, 1000])
+@pytest.mark.parametrize("h", [1, 127, 5000, 5001])
+@pytest.mark.parametrize("b", [1, 7, 64, 200])
+def test_homology_tiles_cover_drafts_and_rows_once(b, h, k, sms):
+    """CTA (x, y) scores rows [x*rows, (x+1)*rows) against drafts
+    [y*tb, (y+1)*tb), both cut at the end: every (draft, row) once, the
+    drafts' shared memory within its budget, and about CTAS_PER_SM CTAs
+    per SM once B is large enough to fill them."""
+    rows = 128
+    tb, n_h, n_b = HS.plan_tiles(b, h, k, sms, rows)
+    assert 1 <= tb <= min(HS.MAX_TILE_B, b)
+    assert 4 * tb * (2 * k + 1) <= HS.SMEM_TILE
+    seen = torch.zeros(b, h, dtype=torch.int32)
+    for y in range(n_b):
+        for x in range(n_h):
+            seen[y * tb:(y + 1) * tb, x * rows:(x + 1) * rows] += 1
+    assert bool((seen == 1).all())
+    assert (n_h - 1) * rows < h <= n_h * rows
+    assert (n_b - 1) * tb < b <= n_b * tb
+    if tb < min(HS.MAX_TILE_B, HS.SMEM_TILE // (4 * (2 * k + 1))):
+        # the tile was not held down by a cap: the grid is near its aim
+        aim = HS.CTAS_PER_SM * sms
+        assert 2 * n_h * n_b >= min(aim, b * n_h)
+        assert n_h * n_b <= aim + n_h
