@@ -17,9 +17,16 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    two streams, one launch per call; decode attention at the RAG shape
    for chatglm3-6b's G=16 and the G=4 and G=9 of the other dense configs,
    decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
-   Criteo tables, B=512; homology_validate (scores, best row, its score)
-   at B=1, 64, 200, k=1, 10, 32 and a generic k, weighted, grouped, ties
-   across CTAs, 200 calls back to back and two streams; fused_rerank with
+   Criteo tables, B=512 (int32 and int64 ids, bf16 tables of even and odd
+   d; one launch a call, and each call's host and device time beside
+   F.embedding_bag's); lexical_score at B=1, 64, 65 and 200 (two
+   launches), k=1 and MAX_K, shared and repeated terms, tie-heavy postings
+   that overflow the kernel's hit list, matches that fill its global list
+   (fast and slow rounds mixed), tile_n 99, 256 and 512, 200 calls back to
+   back and two streams, one launch a call; homology_validate (scores,
+   best row, its score) at B=1, 64, 200, k=1, 10, 32 and a generic k,
+   weighted, grouped, ties across CTAs, 200 calls back to back and two
+   streams; fused_rerank with
    its final top-k at B=1, 64, 65, P=1, 20, 64, k=1, 10 and > P; both one
    launch a call, each beside the split sequence (the reduction in
    launches of its own after the kernel), and
@@ -103,7 +110,10 @@ DECODE_KERNELS = ("decode_attn_mma_kernel", "decode_attn_simt_kernel")
 IVF_KERNELS = ("ivf_range_kernel",)
 HOMOLOGY_KERNEL = "homology_kernel"
 FUSED_KERNEL = "fused_topk_kernel"
+LEXICAL_KERNEL = "lexical_kernel"
+BAG_KERNEL = "bag_kernel"
 IVF_BACK_TO_BACK = 200         # calls on one stream, then the tickets read 0
+PROFILE_MARGIN_S = 0.02        # idle host time at each end of a profiled window
 TAU = 0.2                      # HaS accept threshold (Algorithm 1 line 11)
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
@@ -168,9 +178,14 @@ def device_times(fn, reps: int, warm: bool = True,
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # Kineto drops device records that fall outside its capture window
+        # on the host clock; a margin on each side keeps a skew between the
+        # two clocks from cutting off the first or last calls.
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     out = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -182,6 +197,28 @@ def device_times(fn, reps: int, warm: bool = True,
             if counts is not None:
                 counts[e.key] = counts.get(e.key, 0) + e.count / reps
     return out
+
+
+def host_device_split(fn, calls: int = 200, runs: int = 5) -> dict:
+    """Where a call's time goes: host time per call (``perf_counter`` over
+    ``calls`` calls with no synchronize, median of ``runs`` runs) and the
+    device time and launches per call of every kernel it runs
+    (profiler)."""
+    fn()
+    per = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    counts = {}
+    times = device_times(fn, 20, counts=counts)
+    return {"host_us": statistics.median(per), "host_us_runs": per,
+            "device_us": sum(times.values()),
+            "launches": sum(counts.values()),
+            "kernels_us": {kernel_name(k): v for k, v in times.items()}}
 
 
 def own_kernels(times: dict[str, float], names) -> dict[str, float]:
@@ -314,17 +351,27 @@ def ivf_check(rec, name, q, probe, vecs, ids, k, scales=None, bias=None):
     return ki
 
 
-def one_launch_us(what, call, symbol) -> float:
+def one_launch_us(what, call, symbol, tries: int = 3) -> float:
     """Device time (us) of one call, from the profiler, which must see one
     launch per call of the kernel ``symbol`` and nothing else: the
     reduction runs in the same launch, and no output or scratch is
-    cleared."""
-    counts = {}
-    times = device_times(call, 20, counts=counts)
-    if set(counts) != {k for k in counts if symbol in k} or \
-            sum(counts.values()) != 1:
-        raise AssertionError(f"{what}: launches per call {counts}")
-    return own_kernel_us(times, (symbol,))
+    cleared.  A trace that shows another kernel, or more than one launch a
+    call, fails at once.  CUPTI may drop a few kernel records from a
+    window (seen on the H100: 2 of 20), and a trace with fewer records
+    than calls would also understate the time, so such a trace is taken
+    again, up to ``tries`` times in all."""
+    for _ in range(tries):
+        counts = {}
+        times = device_times(call, 20, counts=counts)
+        if set(counts) != {k for k in counts if symbol in k} or \
+                sum(counts.values()) > 1:
+            raise AssertionError(f"{what}: launches per call {counts}")
+        if sum(counts.values()) == 1:
+            return own_kernel_us(times, (symbol,))
+        log(f"{what}: the profiler saw {counts} launches per call; "
+            "tracing again")
+    raise AssertionError(f"{what}: launches per call {counts} in each of "
+                         f"{tries} traces")
 
 
 def ivf_edge_cases(dev, g, rec, scaled: bool):
@@ -712,8 +759,10 @@ def check_hybrid_kernels(dev, timer) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.ivf_scan import (ivf_scan, ivf_scan_plain,
                                               plan_ranges)
+    from repro_torch.kernels.lexical_score import MAX_K as MAX_LEX_K
     from repro_torch.kernels.lexical_score import (lexical_score,
-                                                   lexical_score_plain)
+                                                   lexical_score_plain,
+                                                   plan_chunks, plan_grid)
     from repro_torch.retrieval.lexical import build_doc_terms, query_terms
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -804,19 +853,43 @@ def check_hybrid_kernels(dev, timer) -> dict:
         return (torch.as_tensor(np.stack([t for t, _ in qs]), device=dev),
                 torch.as_tensor(np.stack([w for _, w in qs]), device=dev))
 
-    def lex_case(name, qt, qw, dt_, dw_, tile_n=512):
-        kv, ki = lexical_score(qt, qw, dt_, dw_, K, tile_n)
-        pv, pi = lexical_score_plain(qt, qw, dt_, dw_, K, tile_n)
+    def lex_case(name, qt, qw, dt_, dw_, tile_n=512, k=K):
+        n0 = lexical_score.launches
+        kv, ki = lexical_score(qt, qw, dt_, dw_, k, tile_n)
+        launches = lexical_score.launches - n0
+        pv, pi = lexical_score_plain(qt, qw, dt_, dw_, k, tile_n)
         if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
             raise AssertionError(f"lexical_score/{name}: kernel and plain "
                                  f"differ (must be bit-equal)")
-        rec["cases"][name] = {"max_abs_err": 0.0,
+        want = len(plan_chunks(qt.shape[0], qt.shape[1]))
+        if launches != want:
+            raise AssertionError(f"lexical_score/{name}: {launches} "
+                                 f"launches, want {want}")
+        rec["cases"][name] = {"max_abs_err": 0.0, "launches": launches,
                               "finite": int(torch.isfinite(kv).sum())}
 
     (qt1, qw1), (qt64, qw64) = lex_queries(1), lex_queries(64)
     lex_case("B=1,N=500000", qt1, qw1, dt, dw)
     lex_case("B=64,N=500000", qt64, qw64, dt, dw)
-    # > k tied matches over many tiles, plus a tail tile of 163 rows
+    for b in (65, 200):                          # 200: two launches
+        lex_case(f"B={b},N=500000", *lex_queries(b), dt, dw)
+    for k in (1, MAX_LEX_K):
+        lex_case(f"B=64,k={k}", qt64, qw64, dt, dw, k=k)
+    # dense enough that the global list fills: fast and slow rounds mixed
+    rng_mixed = np.random.default_rng(7)
+    dt_mix = torch.as_tensor(rng_mixed.integers(-1, 2000, (200_000, 5)),
+                             dtype=torch.int32, device=dev)
+    dw_mix = torch.where(dt_mix >= 0, 0.7, 0.0).float()
+    lex_case("fast and slow rounds mixed", torch.as_tensor(
+        rng_mixed.integers(0, 2000, (64, 2)), dtype=torch.int32, device=dev),
+        qw64, dt_mix, dw_mix)
+    del dt_mix, dw_mix
+    shared = qt64[:8].clone()                    # terms shared by queries
+    shared[1:4, 0] = shared[0, 0]
+    shared[4, 1] = shared[4, 0]                  # repeated in one query
+    lex_case("shared and repeated terms", shared, qw64[:8], dt, dw)
+    # > k tied matches over many tiles, plus a tail tile of 163 rows; most
+    # tiles' hits overflow the kernel's list
     n_t = 100_003
     dt_tie = torch.randint(0, 6, (n_t, 5), device=dev, generator=g,
                            dtype=torch.int32)
@@ -830,17 +903,54 @@ def check_hybrid_kernels(dev, timer) -> dict:
     lex_case("ties over 196 tiles + tail tile", qt_tie, qw_tie, dt_tie,
              dw_tie)
     lex_case("ties, tile 256", qt_tie, qw_tie, dt_tie, dw_tie, 256)
+    lex_case("ties, tile 99 (unaligned tiles)", qt_tie, qw_tie, dt_tie,
+             dw_tie, 99)
+    lex_case("ties, B=1", qt_tie[3:4], qw_tie[3:4], dt_tie, dw_tie)
+    # back to back, then two streams; the tickets and bitmaps read 0 after
+    first = lexical_score(qt64, qw64, dt, dw, K)
+    for _ in range(IVF_BACK_TO_BACK - 1):
+        last = lexical_score(qt64, qw64, dt, dw, K)
+    torch.cuda.synchronize()
+    if not (torch.equal(first[0], last[0]) and torch.equal(first[1],
+                                                          last[1])):
+        raise AssertionError("lexical_score: back-to-back calls differ")
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st, (qt, qw) in zip(streams, ((qt1, qw1), (qt64, qw64))):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(lexical_score(qt, qw, dt_tie, dw_tie, K, 99))
+    torch.cuda.synchronize()
+    for (qt, qw), (kv, ki) in zip(((qt1, qw1), (qt64, qw64)), outs):
+        pv, pi = lexical_score_plain(qt, qw, dt_tie, dw_tie, K, 99)
+        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            raise AssertionError("lexical_score: two streams differ")
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "lexical_score" and \
+                buf[:n_tickets].view(torch.int32).any():
+            raise AssertionError("lexical_score: a ticket or bitmap word "
+                                 "is not 0 after the calls")
+    rec["cases"]["200 calls back to back, two streams"] = {
+        "max_abs_err": 0.0, "tickets_zero": True}
     for b, qt, qw in ((1, qt1, qw1), (64, qt64, qw64)):
-        n_bytes = dt.numel() * 8 + qt.numel() * 8 + b * K * 8
-        bms, by = bound(n_bytes, 2 * b * dt.numel() * qt.shape[1])
+        # what this data needs: every term, the weights of the rows that
+        # hold one of the batch's terms, the queries and the outputs; one
+        # probe per term
+        hit_rows = int(torch.isin(dt, qt[qt >= 0]).any(dim=1).sum())
+        n_bytes = dt.numel() * 4 + hit_rows * dt.shape[1] * 4 \
+            + qt.numel() * 8 + b * K * 8
+        bms, by = bound(n_bytes, dt.numel())
         rec[f"B={b}"] = {
+            "hit_rows": hit_rows,
             "ms": timer(lambda: lexical_score(qt, qw, dt, dw, K)),
             "plain_ms": timer(lambda: lexical_score_plain(qt, qw, dt, dw, K),
                               reps=10),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: lexical_score(qt, qw, dt, dw, K), 20),
-                ("lexical_tile_kernel", "lexical_merge_kernel"))}
+            "kernel_device_us": one_launch_us(
+                "lexical_score", lambda: lexical_score(qt, qw, dt, dw, K),
+                LEXICAL_KERNEL),
+            "ctas": plan_grid(-(-dt.shape[0] // 512), 512,
+                              _build.sm_count(dev))}
     del dt, dw, dt_tie, dw_tie
 
     # -- fused_rerank: RRF + diversification + rerank of the pool -----------
@@ -1077,6 +1187,7 @@ def check_embedding_bag(dev, timer) -> tuple[dict, dict]:
         case(f"{name} mean", table, ids, mode="mean")
         case(f"{name} weighted", table, ids, w)
         ids64 = ids.long()
+        case(f"{name} int64 ids, weighted mean", table, ids64, w, "mean")
         uniq = int(torch.unique(ids).numel())
         n_bytes = uniq * table.shape[1] * 4 + ids.numel() * 4 \
             + BAG_BATCH * table.shape[1] * 4
@@ -1089,15 +1200,28 @@ def check_embedding_bag(dev, timer) -> tuple[dict, dict]:
             "library_ms": timer(lambda: F.embedding_bag(ids64, table,
                                                         mode="sum")),
             "bound_ms": bms, "bound_by": by,
-            "kernel_device_us": own_kernel_us(device_times(
-                lambda: embedding_bag(table, ids), 20), ("bag_kernel",))}
+            "kernel_device_us": one_launch_us(
+                "embedding_bag", lambda: embedding_bag(table, ids),
+                BAG_KERNEL),
+            "kernel_device_us_int64_ids": one_launch_us(
+                "embedding_bag (int64 ids)",
+                lambda: embedding_bag(table, ids64), BAG_KERNEL),
+            "split": {
+                "kernel": host_device_split(lambda: embedding_bag(table,
+                                                                  ids)),
+                "kernel, int64 ids": host_device_split(
+                    lambda: embedding_bag(table, ids64)),
+                "F.embedding_bag": host_device_split(
+                    lambda: F.embedding_bag(ids64, table, mode="sum"))}}
     table, vocabs = tables["dlrm-rm2"]
     ids = criteo_ids(vocabs, BAG_BATCH, g, dev)
     small = table[:4_000_000].to(torch.bfloat16)
     case("bf16 table, sum", small, ids % small.shape[0])
     case("bf16 table, weighted mean", small, ids % small.shape[0],
          torch.rand(ids.shape, device=dev, generator=g), "mean")
-    del small
+    odd = small[:, :63].contiguous()             # 126-byte rows: 2-byte loads
+    case("bf16 table, d=63, int64 ids", odd, (ids % odd.shape[0]).long())
+    del small, odd
 
     # the lookup path: fresh serve_p99 batches through the ops entry point
     embedding_bag.launches = 0
@@ -1656,7 +1780,9 @@ def main() -> int:
         "decode_attn_mma_kernel<128,2> (G=17-32)": _build.library(
             "decode_attention").has_decode_attention_smem(128, 32, 1, 1),
         **{f"topk_scan_kernel tile {t} (k={K})": _build.library(
-            "topk_search").has_topk_search_smem(t, K) for t in range(3)}}
+            "topk_search").has_topk_search_smem(t, K) for t in range(3)},
+        f"{LEXICAL_KERNEL} (tile_n 512)": _build.library(
+            "lexical_score").has_lexical_smem(512)}
     log(f"  dynamic shared memory per block (bytes): {json.dumps(dyn_smem)}")
 
     # phase 3: kernels against their plain versions
@@ -1706,10 +1832,22 @@ def main() -> int:
                     f"{seq} sequence {v['ms']:.4f} ms, device "
                     f"{v['device_us']:.2f} us, {v['launches']:.0f} launches"
                     for seq, v in t[key].items()))
+    log("lexical_score cases (bit-equal; launches a call): " + "; ".join(
+        f"{c} {v['launches']}" for c, v in
+        kres["lexical_score"]["cases"].items() if "launches" in v)
+        + "; 200 calls back to back and two streams, tickets and bitmaps 0 "
+        "after; one launch a call at B=1 and 64 (profiler)")
     for b, ph in kres["fused_rerank"]["trace_us"].items():
         log(f"fused_rerank probe ({FUSED_KERNEL} phases, -DFUSED_RERANK_TRACE,"
             f" {b}, P={POOL}, d=768, diversify 0.98), us: " + "; ".join(
                 f"{k} {v:.3f}" for k, v in ph.items()))
+    for name in BAG_TABLES:
+        log(f"embedding_bag {name} host/device split per call: " + "; ".join(
+            f"{what} host {s['host_us']:.2f} us (perf_counter, 200 calls, "
+            f"median of 5), device {s['device_us']:.2f} us in "
+            f"{s['launches']:.0f} launches (profiler: "
+            f"{', '.join(s['kernels_us'])})"
+            for what, s in kres["embedding_bag"][name]["split"].items()))
     log(f"embedding_bag lookup path: {bag_path['batches']} batches of "
         f"{BAG_BATCH} through embedding_bag_op, launches "
         f"{bag_path['launches']['embedding_bag']}")

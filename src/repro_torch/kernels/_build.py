@@ -51,8 +51,8 @@ SIGNATURES = {
         "has_homology_rows_per_cta": [],
     },
     "lexical_score": {
-        "has_lexical_tiles": [_P] * 7 + [_I] * 6 + [_P],
-        "has_lexical_merge": [_P] * 5 + [_I] * 3 + [_P],
+        "has_lexical_score": [_P] * 8 + [_I] * 7 + [_P],
+        "has_lexical_smem": [_I],
     },
     "fused_rerank": {
         "has_fused_rerank": [_P] * 7 + [_I] * 5 + [_F, _I, _F, _P],
@@ -64,12 +64,13 @@ SIGNATURES = {
         "has_decode_attention_smem": [_I] * 4,
     },
     "embedding_bag": {
-        "has_embedding_bag": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+        "has_embedding_bag": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
     },
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 build_log: dict[str, str] = {}      # nvcc's output (ptxas -v) per kernel
 
 
@@ -136,6 +137,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(name: str, fn: str):
+    """Kernel library ``name``'s C function ``fn``, looked up once."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = _entries[(name, fn)] = getattr(library(name), fn)
+    return f
+
+
 def build_variants(name: str, variants: dict[str, tuple[str, list[str]]],
                    out: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
     """Build variants of kernel ``name`` for the probes: every (source
@@ -177,8 +186,15 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# the current stream's handle without building a torch.cuda.Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle (an int) of PyTorch's current stream on ``device``."""
+    if _raw_stream is None or device.index is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _raw_stream(device.index)
 
 
 # (kernel, device index, stream) -> [buffer, ticket words, other words];

@@ -11,7 +11,8 @@ the TPU kernel accumulates into its output block.  Both versions follow that
 order, so they are bit-equal.
 
 On a CUDA tensor it launches the kernel of ``csrc/embedding_bag.cu`` (one
-thread per (bag, column)) and raises if that fails; on a CPU tensor it runs
+warp per bag, every row gather of the bag in flight at once; int32 or
+int64 ids as given) and raises if that fails; on a CPU tensor it runs
 :func:`embedding_bag_plain`.  ``embedding_bag.launches`` counts the
 kernel's launches.
 """
@@ -54,26 +55,34 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type != "cuda":
         return embedding_bag_plain(table, ids, weights, mode)
     scale = _scale(ids, mode)
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"embedding_bag: table dtype {table.dtype} is not "
-                         f"f32 or bf16")
+    dt = table.dtype
+    if dt is not torch.float32 and dt is not torch.bfloat16:
+        raise ValueError(f"embedding_bag: table dtype {dt} is not f32 or "
+                         f"bf16")
     if table.dim() != 2 or ids.dim() != 2 or \
             (weights is not None and weights.shape != ids.shape):
         raise ValueError(f"embedding_bag: table {tuple(table.shape)}, ids "
                          f"{tuple(ids.shape)}, weights "
                          f"{None if weights is None else tuple(weights.shape)}")
+    if ids.dtype is not torch.int32 and ids.dtype is not torch.int64:
+        ids = ids.to(torch.int32)
+    ids = ids.contiguous()
+    if weights is not None:
+        weights = weights.float().contiguous()
+    dev = table.device
+    if ids.device != dev or (weights is not None and weights.device != dev):
+        raise ValueError(f"embedding_bag: tensors on {ids.device} and {dev}")
+    if not table.is_contiguous():
+        raise ValueError("embedding_bag: operands must be contiguous")
     b, n = ids.shape
     d = table.shape[1]
-    ids32 = ids.to(torch.int32).contiguous()
-    w = None if weights is None else weights.float().contiguous()
-    dev = _build.check_operands("embedding_bag", table, ids32, w)
-    out = torch.empty((b, d), dtype=table.dtype, device=dev)
+    out = torch.empty((b, d), dtype=dt, device=dev)
     if b == 0 or d == 0:
         return out
-    lib = _build.library("embedding_bag")
-    _build.check(lib.has_embedding_bag(
-        _build.ptr(table), _build.ptr(ids32), _build.ptr(w), _build.ptr(out),
-        b, n, d, scale, int(table.dtype == torch.bfloat16),
+    _build.check(_build.entry("embedding_bag", "has_embedding_bag")(
+        table.data_ptr(), ids.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(), b,
+        n, d, scale, dt is torch.bfloat16, ids.dtype is torch.int64,
         _build.stream(dev)), "embedding_bag")
     embedding_bag.launches += 1
     return out

@@ -21,11 +21,16 @@ each tile's top-k by (score desc, column asc), tiles in order; a candidate
 that is not greater than the buffer's minimum changes nothing, so only the
 finite candidates need replaying.
 
-On a CUDA tensor the wrapper launches the kernels of
-``csrc/lexical_score.cu`` (pass 1: every tile's candidates; pass 2: one
-block per query replays the exchange) and raises if that fails; on a CPU
-tensor it runs :func:`lexical_score_plain`.  ``lexical_score.launches``
-counts the kernel's launches (one per call).
+On a CUDA tensor the wrapper launches the kernel of
+``csrc/lexical_score.cu`` once per chunk of at most MAX_QUERIES queries
+and MAX_ENTRIES (query, term) pairs (:func:`plan_chunks`; one chunk up to
+B=128 at T=2): a persistent grid (:func:`plan_grid`) streams the tiles'
+terms into registers and probes them against a filter and hash table of
+the batch's terms; the matches go to a list that the last CTA to arrive
+scores, orders and replays the exchange over (a round with too many
+matches keeps each tile's top-k per query itself); it raises if that
+fails.  On a CPU tensor it runs :func:`lexical_score_plain`.
+``lexical_score.launches`` counts the kernel's launches (one per chunk).
 """
 from __future__ import annotations
 
@@ -36,6 +41,52 @@ from repro_torch.utils import first_argmax
 
 MAX_K = 32           # the replay keeps the buffer in one warp's lanes
 SMEM_LIMIT = 227 * 1024
+TABLE = 1024         # hash slots of the query terms
+FILTER_BITS = 1 << 16   # their hashes' filter
+MAX_ENTRIES = 256    # (query, term) pairs one launch holds
+MAX_QUERIES = 128    # queries one launch holds
+MAX_HITS = 512       # a round's list of matches
+LIST = 2048          # matches handed to the last CTA
+ROUND = 4            # tiles a CTA takes at once
+CTAS_PER_SM = 2      # the persistent grid
+# csrc/lexical_score.cu's shared memory: the filter, the table, a round's
+# matches, per-query counts and the flags; then the last CTA's list
+FIXED_SMEM = 4 * (FILTER_BITS // 32 + 2 * TABLE + 3 * MAX_ENTRIES
+                  + 2 * MAX_HITS + 3 * MAX_QUERIES + 4
+                  + ROUND * MAX_QUERIES // 32 + 4)
+LIST_SMEM = 6 * 4 * LIST
+
+
+def smem_bytes(tile_n: int) -> int:
+    """A CTA's dynamic shared memory: the fixed part, the overflow path's
+    tile_n scores and the last CTA's list."""
+    return FIXED_SMEM + 4 * (-(-tile_n // 4) * 4) + LIST_SMEM
+
+
+def plan_chunks(b: int, t_q: int) -> list[tuple[int, int]]:
+    """[start, stop) of the queries of each launch: at most MAX_QUERIES
+    queries and MAX_ENTRIES (query, term) pairs a launch."""
+    per = MAX_QUERIES if t_q == 0 else min(MAX_QUERIES, MAX_ENTRIES // t_q)
+    if per == 0:
+        raise ValueError(f"lexical_score: {t_q} terms a query exceed the "
+                         f"kernel's {MAX_ENTRIES}-entry table")
+    return [(q, min(q + per, b)) for q in range(0, b, per)]
+
+
+def plan_grid(n_tiles: int, tile_n: int, sms: int) -> int:
+    """CTAs of the persistent grid: CTAS_PER_SM a SM (one if their shared
+    memory does not fit twice), at most one a tile; CTA c takes the rounds
+    :func:`cta_tiles` gives it."""
+    per_sm = CTAS_PER_SM if CTAS_PER_SM * smem_bytes(tile_n) <= SMEM_LIMIT \
+        else 1
+    return max(1, min(n_tiles, per_sm * sms))
+
+
+def cta_tiles(cta: int, ctas: int, n_tiles: int) -> list[list[int]]:
+    """The rounds of tiles CTA ``cta`` of ``ctas`` scores, in its order:
+    tiles cta, cta + ctas, ..., ROUND at a time."""
+    tiles = list(range(cta, n_tiles, ctas))
+    return [tiles[i:i + ROUND] for i in range(0, len(tiles), ROUND)]
 
 
 def _stream_candidates(scores: torch.Tensor, k: int, tile_n: int):
@@ -116,9 +167,11 @@ def lexical_score(q_terms: torch.Tensor, q_weights: torch.Tensor,
             f"doc_weights {tuple(doc_weights.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"lexical_score: k must be in [1, {MAX_K}], got {k}")
-    if tile_n < 1 or tile_n * (8 * l_w + 4) > SMEM_LIMIT:
+    if not 1 <= tile_n <= 0xffff or tile_n * l_w >= 1 << 22 or \
+            smem_bytes(tile_n) > SMEM_LIMIT:
         raise ValueError(f"lexical_score: a {tile_n}-row tile of {l_w} "
                          f"terms does not fit one block's shared memory")
+    chunks = plan_chunks(b, t_q)
     qt = q_terms.to(torch.int32).contiguous()
     qw = q_weights.float().contiguous()
     dt = doc_terms.to(torch.int32).contiguous()
@@ -129,19 +182,22 @@ def lexical_score(q_terms: torch.Tensor, q_weights: torch.Tensor,
     if b == 0 or n == 0:
         return vals.fill_(-torch.inf), ids.fill_(-1)
     n_tiles = -(-n // tile_n)
-    cand_v = torch.empty((b, n_tiles, k), dtype=torch.float32, device=dev)
-    cand_r = torch.empty((b, n_tiles, k), dtype=torch.int32, device=dev)
-    counts = torch.empty((b, n_tiles), dtype=torch.int32, device=dev)
-    lib = _build.library("lexical_score")
-    _build.check(lib.has_lexical_tiles(
-        _build.ptr(qt), _build.ptr(qw), _build.ptr(dt), _build.ptr(dw),
-        _build.ptr(cand_v), _build.ptr(cand_r), _build.ptr(counts), b, t_q,
-        n, l_w, tile_n, k, _build.stream(dev)), "lexical_score (tiles)")
-    _build.check(lib.has_lexical_merge(
-        _build.ptr(cand_v), _build.ptr(cand_r), _build.ptr(counts),
-        _build.ptr(vals), _build.ptr(ids), b, n_tiles, k,
-        _build.stream(dev)), "lexical_score (merge)")
-    lexical_score.launches += 1
+    ctas = plan_grid(n_tiles, tile_n, _build.sm_count(dev))
+    bc = chunks[0][1] - chunks[0][0]
+    st = _build.stream(dev)
+    # the ticket, the list's counts and each query's bitmap of tiles; the
+    # list of matches, then the slow path's candidates
+    tickets, words = _build.scratch(
+        "lexical_score", dev, st, -(-(4 + bc * -(-n_tiles // 32)) // 32) * 32,
+        2 * LIST + 2 * bc * n_tiles * k)
+    fn = _build.entry("lexical_score", "has_lexical_score")
+    for q0, q1 in chunks:
+        _build.check(fn(
+            qt.data_ptr() + 4 * q0 * t_q, qw.data_ptr() + 4 * q0 * t_q,
+            dt.data_ptr(), dw.data_ptr(), tickets, words,
+            vals.data_ptr() + 4 * q0 * k, ids.data_ptr() + 4 * q0 * k,
+            q1 - q0, t_q, n, l_w, tile_n, k, ctas, st), "lexical_score")
+        lexical_score.launches += 1
     return vals, ids
 
 

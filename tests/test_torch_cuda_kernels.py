@@ -30,6 +30,7 @@ from repro_torch.kernels.homology_score import (homology_score,
                                                 homology_validate_plain)
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+from repro_torch.kernels import lexical_score as LS
 from repro_torch.kernels.lexical_score import (lexical_score,
                                                lexical_score_plain)
 from repro_torch.kernels.topk_search import (MAX_K, topk_search,
@@ -378,21 +379,127 @@ def test_cuda_ivf_scan_back_to_back_and_two_streams(cuda_dev, scaled):
         assert _near_tie_ok(v0, i0, i1)
 
 
+def _lexical_inputs(rng, b, n, vocab, dev, t_q=2):
+    dt = rng.integers(-1, vocab, (n, 5)).astype(np.int32)
+    dw = rng.choice([0.7, 1.0, 0.45], (n, 5)).astype(np.float32)
+    dw[dt < 0] = 0.0
+    qt = rng.integers(-1, vocab, (b, t_q)).astype(np.int32)
+    qw = rng.choice([1.0, 0.7, 0.0], (b, t_q)).astype(np.float32)
+    return [_t(x).to(dev) for x in (qt, qw, dt, dw)]
+
+
+def _lexical_check(args, k, tile_n=512):
+    """Kernel and plain bit-equal; the launches are the planned chunks."""
+    n0 = lexical_score.launches
+    v1, i1 = lexical_score(*args, k, tile_n=tile_n)
+    assert lexical_score.launches - n0 == len(
+        LS.plan_chunks(*args[0].shape))
+    v0, i0 = lexical_score_plain(*args, k, tile_n=tile_n)
+    assert torch.equal(v1, v0) and torch.equal(i1, i0)
+    return v1, i1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,vocab,tile_n", [(1, 500_000, 4000, 512),
                                               (64, 50_000, 6, 512),
                                               (3, 2000, 6, 256)])
 def test_cuda_lexical_score_vs_plain(cuda_dev, b, n, vocab, tile_n):
     rng = np.random.default_rng(n)
-    dt = rng.integers(-1, vocab, (n, 5)).astype(np.int32)
-    dw = rng.choice([0.7, 1.0, 0.45], (n, 5)).astype(np.float32)
-    dw[dt < 0] = 0.0
-    qt = rng.integers(-1, vocab, (b, 2)).astype(np.int32)
-    qw = rng.choice([1.0, 0.7, 0.0], (b, 2)).astype(np.float32)
-    args = [_t(x).to(cuda_dev) for x in (qt, qw, dt, dw)]
-    v0, i0 = lexical_score_plain(*args, 10, tile_n=tile_n)
-    v1, i1 = lexical_score(*args, 10, tile_n=tile_n)
-    assert torch.equal(v1, v0) and torch.equal(i1, i0)
+    _lexical_check(_lexical_inputs(rng, b, n, vocab, cuda_dev), 10, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, LS.MAX_K])
+@pytest.mark.parametrize("b", [1, 64, 65, 200])
+def test_cuda_lexical_score_batches_and_k(cuda_dev, b, k):
+    """Sparse matches over 500,000 rows (about 5 a term); B=200 takes two
+    launches (MAX_ENTRIES)."""
+    rng = np.random.default_rng(b + k)
+    args = _lexical_inputs(rng, b, 500_000, 200_000, cuda_dev)
+    v, _ = _lexical_check(args, k)
+    assert bool(torch.isfinite(v).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [1, 3, 99, 256, 512, 4096])
+def test_cuda_lexical_score_overflow_and_unaligned_tiles(cuda_dev, tile_n):
+    """Term 7 sits in every row and query 0 asks for it: its hits overflow
+    each tile's list (the tile is scored in full for it) while the other
+    queries' sparse hits stay in the list; tile_n 1, 3 and 99 give tiles
+    that start off a 16-byte boundary; 20,011 rows end in a tail tile."""
+    rng = np.random.default_rng(tile_n)
+    qt, qw, dt, dw = _lexical_inputs(rng, 9, 20_011, 3000, cuda_dev)
+    dt[:, 2], dw[:, 2] = 7, 0.45
+    qt[0, 0], qt[1] = 7, qt[2]                   # a shared pair of terms
+    qt[3, 1] = qt[3, 0]                          # a term repeated
+    qw[4, 0] = 0.0
+    _lexical_check((qt, qw, dt, dw), 10, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,vocab", [(64, 2000), (8, 300)])
+def test_cuda_lexical_score_fast_and_slow_rounds(cuda_dev, b, vocab):
+    """Matches dense enough that the global list of LIST fills: the first
+    rounds hand their matches to the last CTA, the later ones keep their
+    tiles' top-k, and the replay merges both in tile order."""
+    rng = np.random.default_rng(vocab)
+    _lexical_check(_lexical_inputs(rng, b, 200_000, vocab, cuda_dev), 10)
+
+
+@pytest.mark.cuda
+def test_cuda_lexical_score_back_to_back_and_two_streams(cuda_dev):
+    """200 calls on one stream repeat the first and leave the ticket and
+    every bitmap word at zero; calls on two streams at once each match the
+    plain version."""
+    rng = np.random.default_rng(21)
+    args = _lexical_inputs(rng, 64, 100_000, 6, cuda_dev)
+    first = lexical_score(*args, 10)
+    for _ in range(199):
+        last = lexical_score(*args, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], last[0]) and torch.equal(first[1], last[1])
+    cases = [_lexical_inputs(rng, b, 30_000, v, cuda_dev)
+             for b, v in ((1, 50), (130, 6))]
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = []
+    for st, a in zip(streams, cases):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(lexical_score(*a, 10, tile_n=99))
+    torch.cuda.synchronize()
+    for a, (v1, i1) in zip(cases, outs):
+        v0, i0 = lexical_score_plain(*a, 10, tile_n=99)
+        assert torch.equal(v1, v0) and torch.equal(i1, i0)
+    for (name, _, _), (buf, n_tickets, _) in _build.scratch_cache.items():
+        if name == "lexical_score":
+            assert not buf[:n_tickets].view(torch.int32).any()
+
+
+@pytest.mark.cuda
+def test_cuda_lexical_score_one_launch_a_call(cuda_dev):
+    """A call launches the kernel once (B=200: twice, once a chunk) and
+    nothing else: the launch count, and the profiler over 10 calls sees no
+    other kernel (it may miss a few launches at the edge of its window);
+    the dynamic shared memory is the planned."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    for b, want in ((1, 1), (64, 1), (200, 2)):
+        args = _lexical_inputs(rng, b, 100_000, 50_000, cuda_dev)
+        n0 = lexical_score.launches
+        lexical_score(*args, 10)
+        assert lexical_score.launches - n0 == want
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                lexical_score(*args, 10)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "lexical_kernel" in kernels[0].key
+        assert 1 <= kernels[0].count <= 10 * want
+    lib = _build.library("lexical_score")
+    assert lib.has_lexical_smem(512) == LS.smem_bytes(512)
+    assert lib.has_lexical_smem(99) == LS.smem_bytes(99)
 
 
 def _fused_pool(rng, b, p, d=768):
@@ -488,18 +595,66 @@ def test_cuda_decode_attention_vs_plain(cuda_dev, b, s, h, hkv, d, dt, clen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,weighted,dt", [
-    ("sum", False, torch.float32), ("mean", False, torch.float32),
-    ("sum", True, torch.float32), ("mean", True, torch.bfloat16),
-    ("sum", False, torch.bfloat16)])
-def test_cuda_embedding_bag_vs_plain(cuda_dev, mode, weighted, dt):
+@pytest.mark.parametrize("mode,weighted,dt,d,ids_dtype", [
+    ("sum", False, torch.float32, 64, torch.int32),
+    ("mean", False, torch.float32, 64, torch.int64),
+    ("sum", True, torch.float32, 10, torch.int64),
+    ("mean", True, torch.bfloat16, 64, torch.int32),
+    ("sum", False, torch.bfloat16, 64, torch.int64),
+    ("sum", True, torch.bfloat16, 63, torch.int64),   # odd d: 2-byte loads
+    ("mean", False, torch.bfloat16, 3, torch.int32),
+    ("sum", False, torch.float32, 300, torch.int32)])  # three column blocks
+def test_cuda_embedding_bag_vs_plain(cuda_dev, mode, weighted, dt, d,
+                                     ids_dtype):
     g = torch.Generator(device=cuda_dev).manual_seed(3)
-    v, d, b, n = 100_000, 64, 512, 26
+    v, b, n = 100_000, 512, 26
     table = torch.randn(v, d, device=cuda_dev, generator=g).to(dt)
     ids = torch.randint(0, v, (b, n), device=cuda_dev, generator=g,
-                        dtype=torch.int32)
+                        dtype=ids_dtype)
     w = (torch.randn(b, n, device=cuda_dev, generator=g) if weighted
          else None)
     want = embedding_bag_plain(table, ids, w, mode)
+    n0 = embedding_bag.launches
     got = embedding_bag(table, ids, w, mode)
+    assert embedding_bag.launches == n0 + 1
     assert got.dtype == dt and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 512, 1000])
+@pytest.mark.parametrize("n", [1, 26, 39, 100])
+@pytest.mark.parametrize("d", [1, 3, 10, 32, 33, 64, 100])
+def test_cuda_embedding_bag_shapes(cuda_dev, d, n, b):
+    """Every width (4-, 8- and 16-byte gathers; 32 | 33 and 64 | 100 on
+    each side of a lane's accumulator counts) and bag length (100 slots at
+    d=64 take several passes of a warp's shared memory), weighted."""
+    g = torch.Generator(device=cuda_dev).manual_seed(d * n + b)
+    table = torch.randn(50_000, d, device=cuda_dev, generator=g)
+    ids = torch.randint(0, 50_000, (b, n), device=cuda_dev, generator=g,
+                        dtype=torch.int32)
+    w = torch.rand(b, n, device=cuda_dev, generator=g)
+    for weights in (None, w):
+        got = embedding_bag(table, ids, weights)
+        assert torch.equal(got, embedding_bag_plain(table, ids, weights))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_one_launch_int64_ids(cuda_dev):
+    """int64 ids cost no cast launch: a call launches the kernel once, and
+    the profiler over 10 calls sees no other kernel (it may miss a few
+    launches at the edge of its window)."""
+    from torch.profiler import ProfilerActivity, profile
+    table = torch.randn(10_000, 10, device=cuda_dev)
+    ids = torch.randint(0, 10_000, (512, 39), device=cuda_dev)
+    n0 = embedding_bag.launches
+    embedding_bag(table, ids)
+    assert embedding_bag.launches == n0 + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            embedding_bag(table, ids)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "bag_kernel" in kernels[0].key
+    assert 1 <= kernels[0].count <= 10

@@ -4,8 +4,10 @@ The kernels themselves run only on the card (``test_torch_cuda_kernels.py``);
 how their wrappers cut the work is plain Python and is checked here:
 decode_attention's chunks of the cache and its kernel route,
 topk_search's query tiles and even row ranges, ivf_scan's row ranges
-over each query's probed pool, and homology_score's tiles of cached rows
-by drafts.  Every position, row and query must be covered exactly once.
+over each query's probed pool, homology_score's tiles of cached rows
+by drafts, and lexical_score's persistent grid over the postings tiles and
+its chunks of queries.  Every position, row, tile and query must be
+covered exactly once.
 """
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import homology_score as HS
 from repro_torch.kernels import ivf_scan as IS
+from repro_torch.kernels import lexical_score as LS
 from repro_torch.kernels import topk_search as TS
 
 N_SM = 132                                  # an H100 SXM
@@ -156,3 +159,59 @@ def test_homology_tiles_cover_drafts_and_rows_once(b, h, k, sms):
         aim = HS.CTAS_PER_SM * sms
         assert 2 * n_h * n_b >= min(aim, b * n_h)
         assert n_h * n_b <= aim + n_h
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,tile_n", [
+    (500_000, 512),               # the hybrid path: 977 tiles
+    (100_003, 99), (100_003, 256), (1, 512), (511, 512), (512, 512),
+    (513, 512), (20_011, 1), (70_000, 2048), (5_000_000, 512)])
+def test_lexical_tiles_cover_rows_once(n, tile_n, sms):
+    """CTA c of the persistent grid takes tiles c, c + G, ..., ROUND at a
+    time: every tile once, each tile the reference's rows [t*tile_n,
+    min((t+1)*tile_n, N)) (its pad rows past N are never read), at most
+    CTAS_PER_SM CTAs a SM and one a tile, and their shared memory within
+    what the CTAs of a SM share."""
+    n_tiles = -(-n // tile_n)
+    ctas = LS.plan_grid(n_tiles, tile_n, sms)
+    fits = LS.CTAS_PER_SM * LS.smem_bytes(tile_n) <= LS.SMEM_LIMIT
+    assert ctas == min(n_tiles, (LS.CTAS_PER_SM if fits else 1) * sms)
+    seen = torch.zeros(n, dtype=torch.int32)
+    tiles = torch.zeros(n_tiles, dtype=torch.int32)
+    for c in range(ctas):
+        rounds = LS.cta_tiles(c, ctas, n_tiles)
+        walk = [t for r in rounds for t in r]
+        assert walk == list(range(c, n_tiles, ctas))
+        assert all(1 <= len(r) <= LS.ROUND for r in rounds)
+        for t in walk:
+            tiles[t] += 1
+            seen[t * tile_n:min((t + 1) * tile_n, n)] += 1
+    assert bool((tiles == 1).all()) and bool((seen == 1).all())
+    if n == 500_000 and sms == 132:
+        # one round a CTA: every tile of a CTA in flight at once
+        assert ctas == 264 and all(len(LS.cta_tiles(c, ctas, n_tiles)) == 1
+                                   for c in range(ctas))
+
+
+@pytest.mark.parametrize("t_q", [0, 1, 2, 3, 256])
+@pytest.mark.parametrize("b", [0, 1, 64, 65, 128, 129, 200, 1000])
+def test_lexical_chunks_cover_queries_once(b, t_q):
+    """Each launch holds at most MAX_QUERIES queries and MAX_ENTRIES
+    (query, term) pairs; the chunks cover the batch once, in order, all
+    full but the last (B=200 at T=2: two launches)."""
+    chunks = LS.plan_chunks(b, t_q)
+    seen = torch.zeros(b, dtype=torch.int32)
+    for q0, q1 in chunks:
+        assert q0 < q1 and q1 - q0 <= LS.MAX_QUERIES
+        assert (q1 - q0) * t_q <= LS.MAX_ENTRIES
+        seen[q0:q1] += 1
+    assert bool((seen == 1).all())
+    per = chunks[0][1] - chunks[0][0] if chunks else 0
+    assert all(q1 - q0 == per for q0, q1 in chunks[:-1])
+    if t_q == 2:
+        assert len(chunks) == -(-b // 128)
+
+
+def test_lexical_chunks_refuse_too_many_terms():
+    with pytest.raises(ValueError):
+        LS.plan_chunks(1, LS.MAX_ENTRIES + 1)

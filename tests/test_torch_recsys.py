@@ -103,3 +103,18 @@ def test_fixed_bag_matches_substrate():
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="mode"):
         embedding_bag_plain(torch.tensor(t), torch.tensor(ids), mode="max")
+
+
+def test_bag_probe_cuts_the_shipped_kernel():
+    """``kernels/embedding_bag_probe.py`` cuts ``csrc/embedding_bag.cu``
+    after each stage: every cut version is the shipped source with one
+    early return inserted at the line it names, and the last is the source
+    itself."""
+    from repro_torch.kernels import embedding_bag_probe as probe
+    v = probe.variants()
+    assert list(v) == ["launch", "ids", "rows", "whole"]
+    src = v["whole"][0]
+    for stage, (after, text) in probe.CUTS.items():
+        assert src.count(after) == 1
+        assert v[stage][0] == src.replace(after, after + text)
+        assert v[stage][0].count("return;") == src.count("return;") + 1
