@@ -10,10 +10,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, in parallel);
 3. hold each of the eight kernels against its plain PyTorch version at the
-   main-path shapes (B=1 and B=64, topk_search also at B=7 and B=65 and at
-   k=1 and k=100; ivf_scan in both modes also at B=7 and 65, k=1 and
-   MAX_K, P=1 and 512, a pool smaller than k, all-pad pools, clamped
-   probes, a tie between two probes, d=770, 200 calls back to back and
+   main-path shapes (B=1 and B=64; the tenant path's B=32 shapes: grouped
+   topk_search over 4 x 50,000 rows, ivf_scan at P=64, grouped
+   homology_validate over 4 x 5000 rows with an empty tenant;
+   topk_search also at B=7 and B=65 and at k=1 and k=100; ivf_scan in
+   both modes also at B=7 and 65, k=1 and MAX_K, P=1 and 512, a pool
+   smaller than k, all-pad pools, clamped probes, a tie between two probes, d=770, 200 calls back to back and
    two streams, one launch per call; decode attention at the RAG shape
    for chatglm3-6b's G=16 and the G=4 and G=9 of the other dense configs,
    decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
@@ -63,7 +65,21 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    launch exactly 28 x 64 x 8 times (layers x steps x batches); then one batch's decode window under
    the profiler, and that batch replayed with each backend, its greedy
    tokens equal except at proven near-ties of the logits;
-7. the ``kernels`` JSON line, then the result line
+7. the micro-batched engine (``BatchedHasEngine``, ``batch_size=32``) on
+   phase 4's world, index and 1500 queries, then with 4 tenants on
+   ``sweep_tenants``' stream (entity % 4 == t, 400 queries per tenant,
+   round-robin; h_max and doc_cap per tenant); the counts are set to 0
+   before each and topk_search, ivf_scan and homology_score must be > 0
+   after; ``intra_batch_share`` on the rejected drafts of 20 tenant
+   micro-batches, backend "cuda" equal to "torch" and no follower across
+   tenants; the leakage audit with fuzzy validation and enhancement off
+   (0 leaked ids); 300 queries of each run replayed with
+   ``backend="torch"`` from the same empty cache; a profiled window of 10
+   fresh micro-batches; ``ANNSEngine`` ("ivf", "scann": 4096 buckets,
+   nprobe 64; the "ivf" ids of 300 queries against the plain scan's) and
+   ``HasEngine(fallback=ANNSEngine("ivf"))`` on 400 queries;
+   ``examples/quickstart_torch.py`` at its own size;
+8. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -100,6 +116,12 @@ HYBRID = dict(dense="ann", dense_k=K, lexical_k=K, rrf_k=60.0,
               diversify_sim=0.98, tile_n=512,
               ann_kwargs=dict(n_clusters=1024, nprobe=32, compressed=True))
 ANN_CAP = 977                  # ceil(500,000 / 1024 * 2)
+BATCH = 32                     # max_spec_batch (sched_throughput.py:104)
+TENANT_QUERIES = 400           # per tenant (sweep_tenants: 1600 // 4)
+SHARE_BATCHES = 20             # micro-batches held to intra_batch_share
+SHARE_TAU_MULT = 0.5           # the scheduler's DEFAULT_SHARE_TAU_MULT
+PROFILE_BATCHES = 10           # fresh micro-batches of the batched window
+ANN_BUCKETS = 4096             # ANNSEngine's default scope
 POOL = 2 * K                   # fused pool: dense_k + lexical_k slots
 RETRIEVAL_KERNELS = ("topk_search", "ivf_scan", "homology_score",
                      "ivf_scan_int8", "lexical_score", "fused_rerank")
@@ -115,6 +137,9 @@ BAG_KERNEL = "bag_kernel"
 IVF_BACK_TO_BACK = 200         # calls on one stream, then the tickets read 0
 PROFILE_MARGIN_S = 0.02        # idle host time at each end of a profiled window
 TAU = 0.2                      # HaS accept threshold (Algorithm 1 line 11)
+TENANTS = 4                    # partitions of the tenant path (phase 7)
+GROUPED_TOPK = "B=32,N=200000 grouped"        # phase-3 keys of the shapes
+GROUPED_HOMOLOGY = "B=32,H=20000 grouped"     # the tenant path gives them
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -540,6 +565,29 @@ def check_kernels(dev, timer) -> dict:
               row_group=(torch.arange(5000, device=dev) % 3).int(),
               q_group=(torch.arange(8, device=dev) % 3).int())
     q1, q64 = unit(1), unit(64)
+    # the batched tenant path's cache channel: 4 tenants' rings flattened
+    # to T*Dc rows, micro-batches of 32
+    tring = unit(TENANTS * 50_000)
+    tvalid = torch.rand(tring.shape[0], device=dev, generator=g) < 0.9
+    trg = torch.arange(tring.shape[0], device=dev).div(
+        50_000, rounding_mode="floor").int()
+    q32, tqg = unit(32), (torch.arange(32, device=dev) % TENANTS).int()
+    topk_case(GROUPED_TOPK, q32, tring, tvalid, row_group=trg, q_group=tqg)
+    n_bytes = q32.numel() * 4 + tring.numel() * 4 + tvalid.numel() \
+        + trg.numel() * 4 + tqg.numel() * 4 + 32 * K * 8
+    bms, by = bound(n_bytes, 2 * 32 * tring.numel())
+    grp = dict(row_group=trg, q_group=tqg)
+    own = own_kernels(device_times(
+        lambda: topk_search(q32, tring, K, tvalid, **grp), 20), TOPK_KERNELS)
+    rec[GROUPED_TOPK] = {
+        "ms": timer(lambda: topk_search(q32, tring, K, tvalid, **grp)),
+        "plain_ms": timer(lambda: topk_search_plain(q32, tring, K, tvalid,
+                                                    **grp)),
+        "library_ms": timer(lambda: torch.topk(q32 @ tring.T, K)),
+        "bound_ms": bms, "bound_by": by,
+        "kernel_device_us": sum(own.values()),
+        "kernel_device_us_by_name": own}
+    del tring, tvalid, trg
     for b, q in ((1, q1), (64, q64)):
         n_bytes = q.numel() * 4 + ring.numel() * 4 + valid.numel() \
             + b * K * 8
@@ -570,12 +618,13 @@ def check_kernels(dev, timer) -> dict:
         return torch.stack([torch.randperm(n_b, device=dev, generator=g)[:p]
                             for _ in range(b)]).int()
 
-    pr1, pr64 = probes(1, 64), probes(64, 64)
+    pr1, pr32, pr64 = probes(1, 64), probes(32, 64), probes(64, 64)
     ivf_check(rec, "B=1,P=64", q1, pr1, bvecs, bids, K)
+    ivf_check(rec, "B=32,P=64", q32, pr32, bvecs, bids, K)
     ivf_check(rec, "B=64,P=64", q64, pr64, bvecs, bids, K)
     ivf_check(rec, "pool < k (P=1, cap 4)", unit(3), probes(3, 1),
               bvecs[:, :4].contiguous(), bids[:, :4].contiguous(), K)
-    for b, q, pr in ((1, q1, pr1), (64, q64, pr64)):
+    for b, q, pr in ((1, q1, pr1), (32, q32, pr32), (64, q64, pr64)):
         # the probed buckets' ids, and the vectors of their valid slots
         uniq = torch.unique(pr.long())
         valid = int((bids[uniq] >= 0).sum())
@@ -713,6 +762,40 @@ def check_homology(dev, g, timer) -> dict:
         want = homology_validate_plain(dr, cache, cvalid)
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"homology_validate: stream {i} differs")
+
+    # the batched tenant path's validation: 4 tenants' query caches
+    # flattened to T*H rows, micro-batches of 32; drafts of a tenant whose
+    # rows all score 0 take row 0 (another tenant's), as the reference's
+    # argmax over the flat scores does
+    th = TENANTS * h
+    tcache = torch.randint(-1, 2000, (th, K), device=dev, generator=g,
+                           dtype=torch.int32)
+    tcvalid = torch.rand(th, device=dev, generator=g) < 0.8
+    trg = torch.arange(th, device=dev).div(h, rounding_mode="floor").int()
+    tqg = (torch.arange(32, device=dev) % TENANTS).int()
+    tcvalid[trg == 3] = False                    # tenant 3: an empty cache
+    tdr = torch.randint(-1, 2000, (32, K), device=dev, generator=g,
+                        dtype=torch.int32)
+    pick = tqg.long() * h + torch.randint(0, h, (32,), device=dev,
+                                          generator=g)
+    tdr[::2, :3] = tcache[pick[::2], :3]          # real overlaps, own tenant
+    grp = dict(row_group=trg, q_group=tqg)
+    got = hom_case(GROUPED_HOMOLOGY, tdr, tcache, tcvalid, **grp)
+    if (got[2][tqg == 3] != 0).any():
+        raise AssertionError("homology_validate: an empty tenant's drafts "
+                             "did not take row 0")
+    n_bytes = tdr.numel() * 4 + tcache.numel() * 4 + th + th * 4 + 32 * 4 \
+        + 32 * th * 4 + 32 * 8
+    bms, by = bound(n_bytes, 32 * th * K * K)
+    rec[GROUPED_HOMOLOGY] = {
+        "ms": timer(lambda: homology_validate(tdr, tcache, tcvalid, **grp)),
+        "plain_ms": timer(lambda: homology_validate_plain(tdr, tcache,
+                                                          tcvalid, **grp)),
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        "kernel_device_us": one_launch_us(
+            "homology_validate grouped",
+            lambda: homology_validate(tdr, tcache, tcvalid, **grp),
+            HOMOLOGY_KERNEL)}
 
     tau = torch.tensor(TAU, dtype=torch.float32)
 
@@ -1275,12 +1358,14 @@ def snapshot(state):
         for f in dataclasses.fields(state)})
 
 
-def profile_window(step, window, restore=None) -> dict:
-    """A window of fresh queries, run once on the host clock, then again
-    under the profiler (``restore()`` first puts the engine's cache back)."""
+def profile_window(step, window, restore=None,
+                   accepted=lambda r: bool(r[1])) -> dict:
+    """A window of fresh queries (or micro-batches), run once on the host
+    clock, then again under the profiler (``restore()`` first puts the
+    engine's cache back); ``accepted(step(q))`` counts the accepts."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    accepted = sum(bool(step(q)[1]) for q in window)
+    accepted = sum(accepted(step(q)) for q in window)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / len(window)
     if restore is not None:
@@ -1289,13 +1374,21 @@ def profile_window(step, window, restore=None) -> dict:
     times = device_times(lambda: [step(q) for q in window], 1, warm=False,
                          counts=counts)
     busy = sum(times.values()) / len(window)
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     return {"steps": len(window), "accepted": int(accepted),
             "wall_us_per_step": wall_us, "device_busy_us_per_step": busy,
             "device_idle_share": 1.0 - busy / wall_us,
             "device_ops_per_step": sum(counts.values()) / len(window),
-            "top_kernels_us_per_step": {k[:90]: v / len(window)
-                                        for k, v in top}}
+            "top_kernels_us_per_step": top_ops(times, 10, len(window))}
+
+
+def top_ops(times: dict[str, float], n: int, per: float) -> dict:
+    """The ``n`` largest device times by the first 90 characters of the
+    operation's name (names that share them are summed), each over
+    ``per``, largest first."""
+    short = {}
+    for k, v in times.items():
+        short[k[:90]] = short.get(k[:90], 0.0) + v / per
+    return dict(sorted(short.items(), key=lambda kv: -kv[1])[:n])
 
 
 @contextlib.contextmanager
@@ -1563,6 +1656,319 @@ def hybrid_path(dev, world, queries, index, counters) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the micro-batched and tenant-partitioned engine, the baselines
+# ---------------------------------------------------------------------------
+
+def record_batches(engine):
+    """Keep every (ids, accept) that ``_step_batch`` serves."""
+    out, step = [], engine._step_batch
+
+    def rec(group, rng, dataset):
+        r = step(group, rng, dataset)
+        out.extend((np.asarray(ids), bool(acc)) for ids, acc, _ in r)
+        return r
+
+    engine._step_batch = rec
+    return out
+
+
+@contextlib.contextmanager
+def spec_recording(first: int):
+    """Keep the validation drafts, accept bits and tenant tags of the first
+    ``first`` micro-batches the batched engine speculates."""
+    from repro_torch.serving import batched
+    seen, spec = [], batched.speculate_batch
+
+    def rec(cfg, state, index, q, backend=None, tenant_ids=None):
+        out = spec(cfg, state, index, q, backend=backend,
+                   tenant_ids=tenant_ids)
+        if len(seen) < first:
+            seen.append((out["val_ids"].clone(), out["accept"].clone(),
+                         tenant_ids.copy()))
+        return out
+
+    batched.speculate_batch = rec
+    try:
+        yield seen
+    finally:
+        batched.speculate_batch = spec
+
+
+def tenant_stream(world) -> tuple[list, list]:
+    """``sweep_tenants``' stream: per tenant t, granola queries of entities
+    ``e % TENANTS == t`` (seed 100 + t), TENANT_QUERIES each, interleaved
+    round-robin and tagged."""
+    streams = []
+    for t in range(TENANTS):
+        pool = world.sample_queries(8 * TENANT_QUERIES, **stream_kw(),
+                                    seed=100 + t)
+        streams.append([dict(q, tenant=t) for q in pool
+                        if q["entity"] % TENANTS == t][:TENANT_QUERIES])
+    n = min(len(x) for x in streams)
+    return [streams[t][i] for i in range(n) for t in range(TENANTS)], streams
+
+
+def check_served(what, served, summary, lo=0.0):
+    for ids, _ in served:
+        if ids.shape != (K,):
+            raise AssertionError(f"{what}: malformed ids")
+    if not (lo < summary["dar"] < 1 and 0 < summary["doc_hit_rate"] <= 1):
+        raise AssertionError(f"{what}: implausible metrics {summary}")
+
+
+def replay_batched(what, service, queries, served, make):
+    """The first REPLAY_QUERIES of a batched run again, from the same empty
+    cache, through ``make("torch")``: accept bits equal, ids equal up to
+    near-ties proven by recomputation."""
+    eng = make("torch")
+    plain = record_batches(eng)
+    eng.serve(queries[:REPLAY_QUERIES])
+    swaps = 0
+    for i, (a, b) in enumerate(zip(served, plain)):
+        if a[1] != b[1]:
+            raise AssertionError(f"{what} replay: accept differs at {i}")
+        if (a[0] != b[0]).any():
+            if not dense_near_tie(service, queries[i]["emb"], a[0], b[0]):
+                raise AssertionError(f"{what} replay: ids differ at {i}")
+            swaps += int((a[0] != b[0]).sum())
+    return {"queries": len(plain), "accept_equal": True,
+            "near_tie_swaps": swaps,
+            "dar_plain": float(np.mean([p[1] for p in plain]))}
+
+
+def batched_path(dev, world, queries, service, index, counters) -> dict:
+    from repro_torch.core.has import (HasConfig, cache_update_chunked,
+                                      intra_batch_share)
+    from repro_torch.retrieval.ivf import build_ivf
+    from repro_torch.serving.batched import BatchedHasEngine
+    from repro_torch.serving.engine import ANNSEngine, HasEngine
+
+    info = {}
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+
+    def make(backend=None, n_tenants=1, cfg_=cfg):
+        return BatchedHasEngine(service, cfg_, batch_size=BATCH,
+                                backend=backend, n_tenants=n_tenants,
+                                index=index)
+
+    # the batched engine at B=32 on phase 4's stream
+    counters.reset()
+    eng = make()
+    served = record_batches(eng)
+    t0 = time.perf_counter()
+    res = eng.serve(queries)
+    torch.cuda.synchronize()
+    info["serve_s"] = time.perf_counter() - t0
+    info["launches"] = counters.read()
+    info["summary"] = res.summary()
+    check_served("batched path", served, info["summary"])
+
+    # four tenants on sweep_tenants' stream, the share election recorded
+    mixed, streams = tenant_stream(world)
+    counters.reset()
+    teng = make(n_tenants=TENANTS)
+    tserved = record_batches(teng)
+    t0 = time.perf_counter()
+    with spec_recording(SHARE_BATCHES) as spec_seen:
+        tres = teng.serve(mixed)
+    torch.cuda.synchronize()
+    info["tenant_serve_s"] = time.perf_counter() - t0
+    info["tenant_launches"] = counters.read()
+    info["tenant_queries"] = len(mixed)
+    info["tenant_summary"] = tres.summary()
+    tids = np.array([q["tenant"] for q in mixed])
+    info["tenant_dar"] = [float(tres.accepts[tids == t].mean())
+                          for t in range(TENANTS)]
+    check_served("tenant path", tserved, info["tenant_summary"])
+    for what, got in (("batched", info["launches"]),
+                      ("tenant", info["tenant_launches"])):
+        for name in ("topk_search", "ivf_scan", "homology_score"):
+            if got[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{what} path")
+
+    # intra_batch_share on the rejected drafts of SHARE_BATCHES of them
+    share = {"batches": len(spec_seen), "rejected": 0, "followers": 0,
+             "cross_tenant_followers": 0}
+    share_tau = SHARE_TAU_MULT * TAU
+    for val, acc, tg in spec_seen:
+        rej = ~acc
+        got = intra_batch_share(val, rej, share_tau, tenant_ids=tg,
+                                backend="cuda")
+        want = intra_batch_share(val, rej, share_tau, tenant_ids=tg,
+                                 backend="torch")
+        if not all(torch.equal(got[k_], want[k_]) for k_ in got):
+            raise AssertionError("intra_batch_share: cuda and torch differ")
+        leader = got["leader"].cpu().numpy()
+        follow = leader != np.arange(len(leader))
+        share["rejected"] += int(rej.sum())
+        share["followers"] += int(follow.sum())
+        share["cross_tenant_followers"] += int(
+            (tg[leader[follow]] != tg[follow]).sum())
+    if share["cross_tenant_followers"]:
+        raise AssertionError(f"intra_batch_share: {share}")
+    info["share"] = share
+
+    # the leakage audit: fuzzy validation and enhancement off, every id of
+    # an accepted draft must be one its tenant paid a full retrieval for
+    cfg_nf = dataclasses.replace(cfg, use_fuzzy_validation=False,
+                                 use_fuzzy_enhancement=False)
+    leng = make(n_tenants=TENANTS, cfg_=cfg_nf)
+    lserved = record_batches(leng)
+    leng.serve(mixed)
+    own = [set() for _ in range(TENANTS)]
+    for (ids, acc), t in zip(lserved, tids):
+        if not acc:
+            own[t].update(int(x) for x in ids if x >= 0)
+    leaked = sum(int(x) not in own[t]
+                 for (ids, acc), t in zip(lserved, tids) if acc
+                 for x in ids if x >= 0)
+    audited = sum(acc for _, acc in lserved)
+    info["leakage"] = {"leaked_ids": leaked, "audited": int(audited)}
+    if leaked or not audited:
+        raise AssertionError(f"leakage audit: {info['leakage']}")
+
+    # the replays, from the same (empty) cache with backend="torch"
+    info["replay"] = replay_batched("batched", service, queries, served,
+                                    make)
+    info["tenant_replay"] = replay_batched(
+        "tenant", service, mixed, tserved,
+        lambda be: make(be, n_tenants=TENANTS))
+
+    # a profiled window of PROFILE_BATCHES fresh micro-batches
+    window = world.sample_queries(PROFILE_BATCHES * BATCH, **stream_kw(),
+                                  seed=2)
+    groups = [window[i:i + BATCH] for i in range(0, len(window), BATCH)]
+    snap = snapshot(eng.state)
+    rng = np.random.default_rng(0)
+
+    def restore():
+        eng.state = snapshot(snap)
+
+    info["profile"] = profile_window(
+        lambda grp: eng._step_batch(grp, rng, "granola"), groups, restore,
+        accepted=lambda r: sum(a for _, a, _ in r))
+    # the ingest alone: the window's first micro-batch as BATCH reject rows,
+    # one cache_update_chunked into a snapshot, under the profiler
+    embs = np.stack([q["emb"] for q in groups[0]])
+    ids, _ = service.full_search_batch(embs)
+    st, counts = snapshot(snap), {}
+    times = device_times(lambda: cache_update_chunked(
+        cfg, st, embs, ids, corpus=service.corpus, chunk=BATCH), 1,
+        warm=False, counts=counts)
+    info["profile_ingest"] = {
+        "rows": len(embs), "device_busy_us": sum(times.values()),
+        "device_ops": sum(counts.values()),
+        "top_kernels_us": top_ops(times, 6, 1)}
+
+    # the baselines: ANNSEngine in both modes, HaS with the ANNS fallback
+    t0 = time.perf_counter()
+    ann_index = build_ivf(service.corpus, ANN_BUCKETS, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info["ann_build_s"] = time.perf_counter() - t0
+    base = {}
+    anns = {}
+    for method in ("ivf", "scann"):
+        counters.reset()
+        anns[method] = ANNSEngine(service, method, n_buckets=ANN_BUCKETS,
+                                  nprobe=64, index=ann_index)
+        r = anns[method].serve(queries[:FULL_QUERIES]).summary()
+        base[f"anns_{method}"] = {"summary": r,
+                                  "launches": counters.read()}
+        if base[f"anns_{method}"]["launches"]["ivf_scan"] <= 0 or \
+                not 0 < r["doc_hit_rate"] <= 1:
+            raise AssertionError(f"ANNSEngine({method}): {r}")
+    # the f32 scan's ids against the plain scan's on the same index
+    plain = ANNSEngine(service, "ivf", n_buckets=ANN_BUCKETS, nprobe=64,
+                       index=ann_index, backend="torch")
+    swaps = 0
+    for i, q in enumerate(queries[:REPLAY_QUERIES]):
+        a, b = anns["ivf"].search(q["emb"])[0], plain.search(q["emb"])[0]
+        if (a != b).any():
+            if not dense_near_tie(service, q["emb"], a, b):
+                raise AssertionError(f"ANNSEngine replay: ids differ at {i}")
+            swaps += int((a != b).sum())
+    base["anns_replay"] = {"queries": REPLAY_QUERIES, "near_tie_swaps": swaps}
+    counters.reset()
+    fb = HasEngine(service, cfg, ANNSEngine(service, "ivf",
+                                            n_buckets=ANN_BUCKETS, nprobe=64,
+                                            index=ann_index), index=index)
+    fsteps = recording(fb)
+    r = fb.serve(queries[:FULL_QUERIES]).summary()
+    base["has_fallback"] = {"summary": r, "launches": counters.read()}
+    check_steps("HasEngine(fallback=ANNSEngine)", fsteps, r)
+    info["baselines"] = base
+    return info
+
+
+def report_batched(bat: dict) -> None:
+    """Phase 7's lines of the log."""
+    for title, key, skey in (("batched B=32", "launches", "summary"),
+                             (f"tenants T={TENANTS}, B=32", "tenant_launches",
+                              "tenant_summary")):
+        sm = bat[skey]
+        log(f"[{title}] AvgL {sm['avg_latency_s']:.4f} s, DAR "
+            f"{sm['dar']:.4f}, CAR {sm['car']:.4f}, DocHit "
+            f"{sm['doc_hit_rate']:.4f}, RA {sm['ra_qwen3-8b']:.4f}; "
+            f"launches: {bat[key]}")
+    log(f"[batched] {HAS_QUERIES} queries in {bat['serve_s']:.1f} s; tenants "
+        f"{bat['tenant_queries']} queries ({TENANT_QUERIES} per tenant, "
+        f"round-robin) in {bat['tenant_serve_s']:.1f} s, DAR per tenant "
+        f"{[round(x, 4) for x in bat['tenant_dar']]}")
+    log(f"[tenants] leakage audit (fuzzy V and E off): "
+        f"{bat['leakage']['leaked_ids']} leaked ids over "
+        f"{bat['leakage']['audited']} accepted drafts; intra_batch_share on "
+        f"{bat['share']['batches']} micro-batches ({bat['share']['rejected']}"
+        f" rejected, {bat['share']['followers']} followers): cuda equal to "
+        f"torch, {bat['share']['cross_tenant_followers']} cross-tenant "
+        f"followers")
+    pr = bat["profile"]
+    log(f"[batched] window of {pr['steps']} fresh micro-batches of {BATCH} "
+        f"({pr['accepted']} accepted): {pr['wall_us_per_step']:.1f} "
+        f"us/micro-batch wall, device busy "
+        f"{pr['device_busy_us_per_step']:.1f} us/micro-batch (profiler), "
+        f"{pr['device_ops_per_step']:.1f} device ops/micro-batch, idle share "
+        f"{pr['device_idle_share']:.3f}; top kernels us/micro-batch: "
+        f"{json.dumps(pr['top_kernels_us_per_step'])}")
+    pi = bat["profile_ingest"]
+    log(f"[batched] the ingest alone ({pi['rows']} rows, one "
+        f"cache_update_chunked): device busy {pi['device_busy_us']:.1f} us, "
+        f"{pi['device_ops']:.0f} device ops (profiler); top: "
+        f"{json.dumps(pi['top_kernels_us'])}")
+    for key in ("replay", "tenant_replay"):
+        rp = bat[key]
+        log(f"[{key}] {rp['queries']} queries, backend=torch from the same "
+            f"empty cache: accept bits equal, near-tie id swaps "
+            f"{rp['near_tie_swaps']}")
+    for name, b in bat["baselines"].items():
+        if name == "anns_replay":
+            log(f"[anns_ivf] replay ({b['queries']} queries, "
+                f"backend=torch): near-tie id swaps {b['near_tie_swaps']}")
+            continue
+        sm = b["summary"]
+        log(f"[{name}] {FULL_QUERIES} queries: AvgL "
+            f"{sm['avg_latency_s']:.4f} s, DAR {sm['dar']:.4f}, DocHit "
+            f"{sm['doc_hit_rate']:.4f}, RA {sm['ra_qwen3-8b']:.4f}; "
+            f"ivf_scan launches {b['launches']['ivf_scan']}")
+
+
+def quickstart_twin(dev) -> dict:
+    """``examples/quickstart_torch.py`` at its own size on the card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.run(HAS_QUERIES, device=dev)
+    out["s"] = time.perf_counter() - t0
+    if not (0 < out["has"]["dar"] < 1 and out["device"].startswith("cuda")):
+        raise AssertionError(f"quickstart twin: {out}")
+    return out
+
+
 def decode_run(params, cfg, prompt, backend):
     """One batch through prefill and RAG_GEN greedy decode steps, keeping
     every step's logits (f32): (tokens [B, RAG_GEN+1], logits)."""
@@ -1682,7 +2088,6 @@ def rag_path(dev, world, service, index, counters) -> dict:
     counts = {}
     times = device_times(window, 1, warm=False, counts=counts)
     busy = sum(times.values()) / RAG_GEN
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     info["profile"] = {
         "steps": RAG_GEN, "wall_us_per_step": wall_us,
         "device_busy_us_per_step": busy,
@@ -1691,13 +2096,12 @@ def rag_path(dev, world, service, index, counters) -> dict:
         "decode_attention_us_per_step": own_kernel_us(
             times, DECODE_KERNELS)
         / RAG_GEN,
-        "top_kernels_us_per_step": {k[:90]: v / RAG_GEN for k, v in top}}
+        "top_kernels_us_per_step": top_ops(times, 10, RAG_GEN)}
 
     pre = device_times(lambda: tf.prefill(params, prompt, cfg), 1)
-    top = sorted(pre.items(), key=lambda kv: -kv[1])[:8]
     info["prefill_profile"] = {
         "device_busy_ms": sum(pre.values()) / 1e3,
-        "top_kernels_ms": {k[:90]: v / 1e3 for k, v in top}}
+        "top_kernels_ms": top_ops(pre, 8, 1e3)}
 
     tk, lk = decode_run(params, cfg, prompt, None)
     if not torch.equal(tk.cpu(), torch.as_tensor(res.tokens[:RAG_BATCH])):
@@ -1919,6 +2323,17 @@ def main() -> int:
         f"row's tokens part; parted at proven near-ties: "
         f"{rp['parted_rows']}")
 
+    # phase 7: the micro-batched and tenant-partitioned engine, baselines
+    bat = batched_path(dev, world, queries, service, index, counters)
+    report_batched(bat)
+    qs = quickstart_twin(dev)
+    log(f"[quickstart twin] {qs['n_docs']} passages, d=64, {HAS_QUERIES} "
+        f"queries on {qs['device']} in {qs['s']:.1f} s: full DocHit "
+        f"{qs['full']['doc_hit_rate']:.4f}; HaS DAR {qs['has']['dar']:.4f}, "
+        f"CAR {qs['has']['car']:.4f}, DocHit "
+        f"{qs['has']['doc_hit_rate']:.4f}")
+
+    # phase 8: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -1955,6 +2370,7 @@ def main() -> int:
          "ptxas": ptxas, "dynamic_smem": dyn_smem,
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
          "main_path": info, "hybrid_path": hyb, "rag_path": rag,
+         "batched_path": bat, "quickstart_twin": qs,
          "embedding_bag_path": bag_path,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

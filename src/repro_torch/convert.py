@@ -4,7 +4,8 @@ The reference (``repro``) and the port build their IVF indexes and draw
 their weights with different random draws, so a comparison hands one set
 to both.  These functions turn a mapping of numpy arrays (field name ->
 array) into the port's :class:`IVFIndex` / :class:`CompressedIVFIndex` /
-:class:`HasState` on a device, and back.  A caller holding the reference's
+:class:`HasState` (unstacked, or a stacked tenant store) / :class:`ReuseState`
+on a device, and back.  A caller holding the reference's
 objects makes the mapping with
 ``{f: np.asarray(getattr(obj, f)) for f in IVF_FIELDS}``
 (``COMPRESSED_IVF_FIELDS`` for a compressed index).  A transformer's
@@ -18,6 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import ReuseState
 from repro_torch.core.has import HasState
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.retrieval.ivf import CompressedIVFIndex, IVFIndex
@@ -28,6 +30,8 @@ COMPRESSED_IVF_FIELDS = ("centroids", "bucket_vecs", "bucket_scales",
                          "bucket_ids", "bucket_counts")
 STATE_FIELDS = ("query_emb", "query_doc_ids", "query_valid", "q_ptr",
                 "doc_emb", "doc_ids", "d_ptr")
+REUSE_FIELDS = ("query_emb", "doc_ids", "doc_vecs", "margins", "minhash",
+                "valid", "ptr")
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -72,6 +76,40 @@ def has_state_from_numpy(arrays: Mapping[str, np.ndarray],
 
 def has_state_to_numpy(state: HasState) -> dict[str, np.ndarray]:
     return {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+
+
+def _check_tenant_arrays(shapes: Mapping[str, tuple]) -> None:
+    """A stacked store: ``[T]`` pointers, every field led by the same T."""
+    t = shapes["q_ptr"]
+    if len(t) != 1 or any(s[:1] != t or len(s) < 2
+                          for f, s in shapes.items()
+                          if f not in ("q_ptr", "d_ptr")) \
+            or shapes["d_ptr"] != t:
+        raise ValueError(f"not a stacked tenant state: {dict(shapes)}")
+
+
+def tenant_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                            device=None) -> HasState:
+    """The reference's ``init_tenant_states`` store (a ``[T, ...]`` pytree
+    as numpy arrays) -> the port's stacked :class:`HasState`."""
+    _check_tenant_arrays({f: np.shape(arrays[f]) for f in STATE_FIELDS})
+    return has_state_from_numpy(arrays, device)
+
+
+def tenant_state_to_numpy(state: HasState) -> dict[str, np.ndarray]:
+    _check_tenant_arrays({f: tuple(getattr(state, f).shape)
+                          for f in STATE_FIELDS})
+    return has_state_to_numpy(state)
+
+
+def reuse_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                           device=None) -> ReuseState:
+    dev = resolve_device(device)
+    return ReuseState(**{f: _tensor(arrays[f], dev) for f in REUSE_FIELDS})
+
+
+def reuse_state_to_numpy(state: ReuseState) -> dict[str, np.ndarray]:
+    return {f: getattr(state, f).cpu().numpy() for f in REUSE_FIELDS}
 
 
 def transformer_params_from_numpy(tree: Mapping, cfg: TransformerConfig,

@@ -17,8 +17,9 @@ is pluggable: :class:`FullRetrievalBackend` is what the serving layers see.
     and degrade to diversified dense retrieval.
 
 Each ``search`` records one ``core/dispatch.py`` probe, as in the
-reference.  Not ported yet: live ingest (``ingest_docs``), the
-``on_ingest`` hook, ``ReplicaBackend`` and ``ShardedMeshBackend``.
+reference.  Every backend has the reference's no-op ``on_ingest`` hook,
+which the engines call after each cache ingest.  Not ported yet: live
+ingest (``ingest_docs``), ``ReplicaBackend`` and ``ShardedMeshBackend``.
 
 Latency protocol: ``latency(batch)`` returns the *modeled* service time of
 one coalesced dispatch; ``n_workers`` is how many such dispatches a virtual
@@ -57,8 +58,29 @@ class FullRetrievalBackend(Protocol):
         """Modeled service time (s) of ONE coalesced dispatch of ``batch``."""
         ...
 
+    def on_ingest(self, q_embs: np.ndarray, full_ids: np.ndarray,
+                  state, tenant_ids: np.ndarray | None = None, *,
+                  ingest_key=None) -> None:
+        """Cache-ingest notification (rows just folded into the HaS cache).
 
-class LocalFlatBackend:
+        ``tenant_ids [N]`` (optional) tags each row with its tenant
+        partition (None on the single-tenant path); ``ingest_key`` is a
+        stable batch identity, for a replicating backend to drop a batch
+        it has already recorded.
+        """
+        ...
+
+
+class _BackendBase:
+    """The shared no-op ingest hook; concrete backends set search,
+    latency and n_workers."""
+
+    def on_ingest(self, q_embs, full_ids, state, tenant_ids=None, *,
+                  ingest_key=None) -> None:
+        return None
+
+
+class LocalFlatBackend(_BackendBase):
     """One in-process chunked exact scan, one worker."""
 
     n_workers = 1
@@ -78,7 +100,7 @@ class LocalFlatBackend:
         return self.lat.full_scan_time()
 
 
-class IVFBackend:
+class IVFBackend(_BackendBase):
     """ANN cloud stage: IVF index + bucket scan + exact residual buffer.
 
     The index is built by streaming the corpus through k-means assignment
@@ -136,7 +158,7 @@ class IVFBackend:
             residual_rows=self._res_count)
 
 
-class HybridBackend:
+class HybridBackend(_BackendBase):
     """Hybrid lexical+dense cloud stage with fused reranking.
 
     Composes a dense channel (``dense="flat" | "ann"``; the reference's

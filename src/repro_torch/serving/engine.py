@@ -1,12 +1,14 @@
-"""RAG serving engines: full-database retrieval and HaS (paper §IV).
+"""RAG serving engines: Full / HaS / reuse-based / CRAG / ANNS (paper §IV).
 
-Both engines run on one serve-loop substrate (:class:`ServeLoop`): the loop
+All engines run on one serve-loop substrate (:class:`ServeLoop`): the loop
 owns metrics recording, record-rng threading and micro-batch iteration, and
-an engine implements ``_step`` (one query -> ids/accept/latency).  Full
-retrieval goes through the :class:`RetrievalService` backend, with the
-query's hashed terms (``q["terms"]``, ``q["term_weights"]``), which only a
-lexical backend (``HybridBackend``) scores.  This is Algorithm 1's
-sequential semantics: the cache changes between queries.
+an engine implements ``_step`` (one query -> ids/accept/latency) or
+``_step_batch`` (one micro-batch -> a list of those).  Full retrieval goes
+through the :class:`RetrievalService` backend, with the query's hashed
+terms (``q["terms"]``, ``q["term_weights"]``), which only a lexical backend
+(``HybridBackend``) scores.  ``batch_size == 1`` is Algorithm 1's
+sequential semantics (the cache changes between queries);
+serving/batched.py sets ``batch_size > 1`` for snapshot micro-batching.
 
 Recorded metrics (paper §IV):
 
@@ -19,8 +21,7 @@ Recorded metrics (paper §IV):
 
 Measured edge compute is timed on the host clock after
 ``torch.cuda.synchronize``, so a time covers the device work and not only
-its launch.  The ANNS, reuse and CRAG engines of the reference, its ANNS
-fallback and its tenant partitions are not ported yet.
+its launch.
 """
 from __future__ import annotations
 
@@ -29,10 +30,20 @@ import time
 
 import numpy as np
 
+import torch
+
+from repro_torch.core.baselines import (CRAGEvaluator, init_reuse_state,
+                                        mincache_match, minhash_signature,
+                                        proximity_match, reuse_insert,
+                                        saferadius_match)
 from repro_torch.core.has import (HasConfig, HasState, cache_update,
-                                  init_has_state, speculate_batch)
+                                  init_has_state, init_tenant_states,
+                                  speculate_batch)
 from repro_torch.data.synthetic import simulate_response_accuracy
-from repro_torch.retrieval.ivf import IVFIndex, build_ivf, subset_index
+from repro_torch.kernels.ops import check_backend, ivf_scan_op
+from repro_torch.retrieval.flat import quantize_store
+from repro_torch.retrieval.ivf import (IVFIndex, build_ivf, probe_buckets,
+                                       subset_index)
 from repro_torch.retrieval.service import RetrievalService
 from repro_torch.utils import as_f32, synchronize
 
@@ -79,6 +90,11 @@ def _finish(m) -> ServeResult:
 
 
 LLMS = ("qwen3-8b", "llama3-8b", "mixtral-7b")
+
+
+def fuzzy_scope(cfg, index) -> float:
+    """Fraction of the fuzzy IVF index streamed per probed query."""
+    return min(cfg.nprobe, index.n_buckets) / index.n_buckets
 
 
 def _record(m, i, world, query, ids, lat, accept, dataset, llms, rng):
@@ -136,37 +152,98 @@ class FullRetrievalEngine(ServeLoop):
         return ids, False, self.s.latency.sample_cloud() + t
 
 
-class HasEngine(ServeLoop):
-    """The paper's system (Algorithm 1) on the service's device.
+class ANNSEngine(ServeLoop):
+    """IVF / ScaNN-substitute at a configurable scope (Table II ♠/♦).
 
-    The parameters follow the reference's, in its order.  ``fallback`` (the
-    ANNS fallback) and ``n_tenants > 1`` (a partitioned cache) are not
-    ported and raise; with one tenant, ``step(..., tenant=0)`` and a
-    query's ``"tenant"`` key are accepted and any other tag raises, as in
-    the reference.  ``index`` (keyword only) is a prebuilt fuzzy-channel
-    index, so several engines can share one build; without it the engine
-    builds its own from the service's corpus.  ``backend`` is the kernel
-    switch of :func:`~repro_torch.core.has.speculate_batch` (None: by
-    device).
+    'scann' = IVF partitioning + int8 rounding baked into the bucket store
+    (the reference's stand-in for ScaNN's anisotropic quantization): the
+    buckets keep int8-degraded values (the accuracy cost) and are charged
+    1 byte/dim on the latency model (the bandwidth win).  The bucket scan
+    is the f32 ``ivf_scan`` kernel on the card (``backend``, None: by
+    device).  ``index`` (keyword only) is a prebuilt index; without it the
+    engine builds its own from the service's corpus.
+    """
+
+    def __init__(self, service: RetrievalService, method: str = "ivf",
+                 n_buckets: int = 4096, nprobe: int = 64,
+                 on_edge: bool = True, seed: int = 0, *,
+                 index: IVFIndex | None = None, backend: str | None = None):
+        super().__init__(service)
+        self.on_edge = on_edge
+        self.method = method
+        self.backend = check_backend(backend)
+        if index is None:
+            index = build_ivf(service.corpus, n_buckets, seed=seed,
+                              device=service.device)
+        self.index = index
+        self.nprobe = min(nprobe, self.index.n_buckets)
+        self.scope = self.nprobe / self.index.n_buckets
+        if method == "scann":
+            # bake int8 rounding into the bucket store (score degradation):
+            # the reference's per-vector rounding, run op by op, is
+            # quantize_store's (a division by 127)
+            bv = self.index.bucket_vecs
+            st = quantize_store(bv.reshape(-1, bv.shape[-1]))
+            self.index = IVFIndex(
+                centroids=self.index.centroids,
+                bucket_vecs=(st["q"].to(torch.float32)
+                             * st["scale"][:, None]).reshape(bv.shape),
+                bucket_ids=self.index.bucket_ids,
+                bucket_counts=self.index.bucket_counts)
+        self.search(np.zeros((service.world.cfg.d,), np.float32))  # warmup
+        synchronize(service.device)
+
+    def search(self, q_emb):
+        """-> (ids [k] np.int32, modelled scan time)."""
+        q = as_f32(q_emb, self.s.device)[None]
+        lat = self.s.latency
+        probe = probe_buckets(self.index, q, self.nprobe)
+        _, ids = ivf_scan_op(q, probe, self.index.bucket_vecs,
+                             self.index.bucket_ids, self.s.k,
+                             backend=self.backend)
+        # cost ~ probed fraction of the corpus (x2 bucket padding) at
+        # 4 B/dim (ivf) or 1 B/dim (scann int8), + the centroid product
+        bpd = 1 if self.method == "scann" else 4
+        t = lat.scan_time(lat.target_corpus * self.scope * 2.0,
+                          bytes_per_dim=bpd) + lat.scan_time(
+                              self.index.n_buckets)
+        return ids[0].cpu().numpy(), t
+
+    def _step(self, q, rng, dataset):
+        ids, t = self.search(q["emb"])
+        rtt = (self.s.latency.sample_edge() if self.on_edge
+               else self.s.latency.sample_cloud())
+        return ids, False, rtt + t
+
+
+class HasEngine(ServeLoop):
+    """The paper's system (Algorithm 1) with optional ANNS fallback (♦).
+
+    The parameters follow the reference's, in its order.  ``fallback`` (an
+    :class:`ANNSEngine`) answers rejects in place of the full search.
+    ``n_tenants > 1`` partitions the cache (``init_tenant_states``): each
+    query routes through its tenant's slice (``step(..., tenant=t)``, or a
+    ``"tenant"`` key on the query dict) and rejects ingest only into that
+    partition; a tag out of range raises.  ``index`` (keyword only) is a
+    prebuilt fuzzy-channel index, so several engines can share one build;
+    without it the engine builds its own from the service's corpus.
+    ``backend`` is the kernel switch of
+    :func:`~repro_torch.core.has.speculate_batch` (None: by device).
     """
 
     def __init__(self, service: RetrievalService, cfg: HasConfig | None = None,
-                 fallback=None, fuzzy_fraction: float = 1.0, seed: int = 0,
+                 fallback: ANNSEngine | None = None,
+                 fuzzy_fraction: float = 1.0, seed: int = 0,
                  backend: str | None = None, n_tenants: int = 1, *,
                  index: IVFIndex | None = None):
-        if fallback is not None:
-            raise NotImplementedError(
-                "HasEngine(fallback=...): the ANNS fallback (ANNSEngine) is "
-                "not ported yet (ROADMAP queue 1, item 4)")
-        self.n_tenants = max(1, int(n_tenants))
-        if self.n_tenants != 1:
-            raise NotImplementedError(
-                f"HasEngine(n_tenants={n_tenants}): tenant partitions are not "
-                f"ported yet (ROADMAP queue 1, item 3)")
         super().__init__(service)
         self.cfg = cfg or HasConfig(k=service.k, d=service.world.cfg.d)
         self.device = service.device
-        self.state: HasState = init_has_state(self.cfg, device=self.device)
+        self.n_tenants = max(1, int(n_tenants))
+        self.state: HasState = (
+            init_has_state(self.cfg, device=self.device)
+            if self.n_tenants == 1 else
+            init_tenant_states(self.cfg, self.n_tenants, device=self.device))
         if index is None:
             index = build_ivf(service.corpus, self.cfg.n_buckets, seed=seed,
                               device=self.device)
@@ -177,15 +254,18 @@ class HasEngine(ServeLoop):
             * fuzzy_fraction
         # warm up speculation at the sequential shape B=1
         z = np.zeros((1, self.s.world.cfg.d), np.float32)
-        speculate_batch(self.cfg, self.state, self.index, z, backend=backend)
+        speculate_batch(self.cfg, self.state, self.index, z, backend=backend,
+                        tenant_ids=self._tids(0))
         synchronize(self.device)
 
-    def _check_tenant(self, tenant: int) -> None:
-        """The reference's ``_tids`` check: a tag out of range raises."""
+    def _tids(self, tenant: int):
+        """tenant_ids for a B=1 speculation (None on the single-tenant
+        path); a tag out of range raises, as in the reference."""
         if not 0 <= tenant < self.n_tenants:
             raise ValueError(
                 f"tenant {tenant} out of range for n_tenants="
                 f"{self.n_tenants}")
+        return None if self.n_tenants == 1 else np.array([tenant], np.int32)
 
     def _fuzzy_time(self) -> float:
         """Analytic fuzzy-channel scan time at the target corpus scale."""
@@ -193,31 +273,55 @@ class HasEngine(ServeLoop):
         return lat.scan_time(lat.target_corpus * self.fuzzy_scope * 2.0
                              + self.cfg.n_buckets)
 
+    def _speculate(self, q: torch.Tensor, tenant: int) -> tuple[dict, float]:
+        """One query's speculation and its measured edge time (s)."""
+        tids = self._tids(tenant)
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        out = speculate_batch(self.cfg, self.state, self.index, q[None],
+                              backend=self.backend, tenant_ids=tids)
+        synchronize(self.device)
+        return out, time.perf_counter() - t0
+
+    def _ingest(self, q: torch.Tensor, ids: np.ndarray, vecs,
+                tenant: int) -> float:
+        """Fold one reject into its tenant's cache, then tell the backend
+        (replica-style backends mirror the ingest onto standby logs).
+        Returns the measured time of the cache update (s)."""
+        multi = self.n_tenants > 1
+        t0 = time.perf_counter()
+        cache_update(self.cfg, self.state, q, ids, vecs,
+                     tenant_id=tenant if multi else None)
+        synchronize(self.device)
+        t = time.perf_counter() - t0
+        self.s.backend.on_ingest(
+            q.cpu().numpy()[None], ids.astype(np.int32)[None], self.state,
+            tenant_ids=np.array([tenant], np.int32) if multi else None)
+        return t
+
     def step(self, q_emb: np.ndarray, tenant: int = 0, q_terms=None,
              q_term_weights=None):
         """Returns (ids, accept, latency_s, homology).  ``q_terms`` /
         ``q_term_weights`` reach a lexical cloud backend on a reject."""
         lat = self.s.latency.sample_edge()
-        self._check_tenant(tenant)
         q = as_f32(q_emb, self.device)
-        synchronize(self.device)
-        t0 = time.perf_counter()
-        out = speculate_batch(self.cfg, self.state, self.index, q[None],
-                              backend=self.backend)
-        synchronize(self.device)
+        out, t_spec = self._speculate(q, tenant)
         # measured edge compute (cache channel + validation at true scale)
         # + analytic fuzzy scan extrapolated to the target corpus
-        lat += (time.perf_counter() - t0) + self._fuzzy_time()
+        lat += t_spec + self._fuzzy_time()
         accept = bool(out["accept"][0])
         homology = float(out["homology"][0])
         if accept:
             return out["draft_ids"][0].cpu().numpy(), True, lat, homology
-        ids, vecs, t = self.s.full_search(q, q_terms, q_term_weights)
+        # fallback: full database (cloud) or optimized ANNS (♦)
+        if self.fallback is not None:
+            ids, t = self.fallback.search(q)
+            vecs = self.s.corpus[torch.as_tensor(ids).long().clamp_min(0)
+                                 .to(self.device)]
+        else:
+            ids, vecs, t = self.s.full_search(q, q_terms, q_term_weights)
         lat += self.s.latency.sample_cloud() + t
-        t0 = time.perf_counter()
-        cache_update(self.cfg, self.state, q, ids, vecs)
-        synchronize(self.device)
-        lat += time.perf_counter() - t0
+        lat += self._ingest(q, ids, vecs, tenant)
         return ids, False, lat, homology
 
     def _step(self, q, rng, dataset):
@@ -226,3 +330,81 @@ class HasEngine(ServeLoop):
                                         q_terms=q.get("terms"),
                                         q_term_weights=q.get("term_weights"))
         return ids, accept, lat
+
+
+class ReuseEngine(ServeLoop):
+    """Proximity / SafeRadius / MinCache reuse baselines (Table III)."""
+
+    def __init__(self, service: RetrievalService, method: str,
+                 h_max: int = 5000, theta: float = 0.9, alpha: float = 2.0,
+                 t_lex: float = 0.6, t_sem: float = 0.9):
+        super().__init__(service)
+        self.method = method
+        self.state = init_reuse_state(h_max, service.k, service.world.cfg.d,
+                                      device=service.device)
+        self.theta, self.alpha = theta, alpha
+        self.t_lex, self.t_sem = t_lex, t_sem
+
+    def _match(self, q):
+        if self.method == "proximity":
+            return proximity_match(self.state, q["emb"], self.theta)
+        if self.method == "saferadius":
+            return saferadius_match(self.state, q["emb"], self.alpha)
+        if self.method == "mincache":
+            return mincache_match(self.state, q["emb"],
+                                  minhash_signature(q["tokens"]),
+                                  self.t_lex, self.t_sem)
+        raise ValueError(self.method)
+
+    def _step(self, q, rng, dataset):
+        lat = self.s.latency.sample_edge()
+        synchronize(self.s.device)
+        t0 = time.perf_counter()
+        ok, slot, _ = self._match(q)
+        ok = bool(ok)
+        lat += time.perf_counter() - t0
+        if ok:
+            # a copy: a later insert may overwrite the slot in place
+            ids = np.array(self.state.doc_ids[int(slot)].cpu())
+        else:
+            ids, vecs, t = self.s.full_search(q["emb"], q.get("terms"),
+                                              q.get("term_weights"))
+            lat += self.s.latency.sample_cloud() + t
+            scores = vecs @ as_f32(q["emb"], self.s.device)
+            reuse_insert(self.state, q["emb"], ids, vecs, scores,
+                         minhash_signature(q["tokens"]))
+        return ids, ok, lat
+
+
+class CRAGEngine(HasEngine):
+    """HaS pipeline with homology validation replaced by an LLM evaluator.
+
+    The evaluator draws from the record rng before the draft's DocHit and
+    RA, and a reject draws its cloud RTT after the edge RTT, in the
+    reference's order.
+    """
+
+    def __init__(self, service: RetrievalService, cfg: HasConfig | None = None,
+                 evaluator: CRAGEvaluator | None = None, seed: int = 0,
+                 n_tenants: int = 1, *, index: IVFIndex | None = None):
+        super().__init__(service, cfg, seed=seed, n_tenants=n_tenants,
+                         index=index)
+        self.evaluator = evaluator or CRAGEvaluator()
+
+    def _step(self, q, rng, dataset):
+        tenant = int(q.get("tenant", 0))
+        lat = self.s.latency.sample_edge()
+        qt = as_f32(q["emb"], self.device)
+        out, t_spec = self._speculate(qt, tenant)
+        lat += t_spec + self._fuzzy_time()
+        draft = out["draft_ids"][0].cpu().numpy()
+        golden = self.s.world.golden_mask(q["entity"], q["attr"], draft)
+        lat += self.evaluator.latency_s              # LLM inference cost
+        accept = self.evaluator.evaluate(rng, golden, dataset == "popqa")
+        if accept:
+            return draft, True, lat
+        ids, vecs, t = self.s.full_search(qt, q.get("terms"),
+                                          q.get("term_weights"))
+        lat += self.s.latency.sample_cloud() + t
+        self._ingest(qt, ids, vecs, tenant)
+        return ids, False, lat

@@ -211,7 +211,8 @@ def test_cuda_homology_validate_back_to_back_and_two_streams(cuda_dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,p,k", [(1, 64, 10), (64, 64, 10), (2, 1, 10)])
+@pytest.mark.parametrize("b,p,k", [(1, 64, 10), (64, 64, 10), (2, 1, 10),
+                                   (32, 64, 10)])
 def test_cuda_ivf_scan_vs_plain(cuda_dev, b, p, k):
     rng = np.random.default_rng(p)
     q, probe, vecs, ids = _ivf_inputs(rng, b, 256, 123 if p > 1 else 5,
@@ -658,3 +659,103 @@ def test_cuda_embedding_bag_one_launch_int64_ids(cuda_dev):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "bag_kernel" in kernels[0].key
     assert 1 <= kernels[0].count <= 10
+
+
+# -- the tenant path's B=32 shapes -----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty_tenant", [False, True])
+def test_cuda_topk_search_grouped_tenant_rings(cuda_dev, empty_tenant):
+    """The batched tenant path's cache channel: B=32 queries over 4
+    tenants' rings of 50,000 rows flattened to 200,000 (contiguous
+    groups), optionally one tenant's ring empty (its queries get -1)."""
+    t, dc, b, d = 4, 50_000, 32, 768
+    rng = np.random.default_rng(32)
+    q, c, valid, _, _ = _topk_inputs(rng, b, t * dc, d, 0.9, False)
+    rg = np.repeat(np.arange(t, dtype=np.int32), dc)
+    qg = (np.arange(b) % t).astype(np.int32)
+    if empty_tenant:
+        valid[rg == 3] = False
+    args = [_t(x).to(cuda_dev) for x in (q, c, valid, rg, qg)]
+    kw = dict(valid=args[2], row_group=args[3], q_group=args[4])
+    v0, i0 = topk_search_plain(args[0], args[1], 10, **kw)
+    v1, i1 = topk_search(args[0], args[1], 10, **kw)
+    torch.testing.assert_close(v1, v0, rtol=1e-5, atol=1e-5)
+    assert _near_tie_ok(v0, i0, i1)
+    own = torch.div(i1.long().clamp_min(0), dc, rounding_mode="floor")
+    assert bool(((own == args[4][:, None].long()) | (i1 < 0)).all())
+    if empty_tenant:
+        assert bool((i1[args[4] == 3] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty_tenant", [False, True])
+def test_cuda_homology_validate_grouped_tenant_caches(cuda_dev,
+                                                      empty_tenant):
+    """The batched tenant path's validation: B=32 drafts over 4 tenants'
+    query caches of 5000 rows flattened to 20,000; a tenant with an empty
+    cache scores 0 everywhere and takes row 0 (another tenant's), as the
+    reference's flat argmax does.  Scores, best and slot bit-equal."""
+    t, h, b, k = 4, 5000, 32, 10
+    rng = np.random.default_rng(20)
+    draft = rng.integers(-1, 500, (b, k)).astype(np.int32)
+    cache = rng.integers(-1, 500, (t * h, k)).astype(np.int32)
+    valid = rng.random(t * h) < 0.9
+    rg = np.repeat(np.arange(t, dtype=np.int32), h)
+    qg = (np.arange(b) % t).astype(np.int32)
+    if empty_tenant:
+        valid[rg == 3] = False
+    args = [_t(x).to(cuda_dev) for x in (draft, cache, valid)]
+    kw = dict(row_group=_t(rg).to(cuda_dev), q_group=_t(qg).to(cuda_dev))
+    got = homology_validate(*args, **kw)
+    _check_validate(got, homology_validate_plain(*args, **kw), True)
+    if empty_tenant:
+        assert bool((got[2][kw["q_group"] == 3] == 0).all())
+        assert not got[1][kw["q_group"] == 3].any()
+
+
+@pytest.mark.cuda
+def test_cuda_batched_tenant_engine_vs_torch(cuda_dev):
+    """BatchedHasEngine with 4 tenants at a small world: the kernels
+    (backend "cuda") serve the plain path's accept bits and ids (up to
+    near-tied candidates), from one shared index."""
+    from repro_torch.core.has import HasConfig
+    from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
+    from repro_torch.retrieval.ivf import build_ivf
+    from repro_torch.retrieval.service import RetrievalService
+    from repro_torch.serving.batched import BatchedHasEngine
+    from repro_torch.serving.latency import LatencyModel
+
+    world = SyntheticWorld(WorldConfig(n_entities=2000, d=64))
+    service = RetrievalService(world, LatencyModel(), k=10, device=cuda_dev)
+    cfg = HasConfig(k=10, tau=0.2, h_max=200, doc_capacity=1000, nprobe=8,
+                    n_buckets=128, d=64)
+    index = build_ivf(service.corpus, cfg.n_buckets, seed=0)
+    queries = [dict(q, tenant=int(q["entity"]) % 4)
+               for q in world.sample_queries(400, seed=1)]
+    served = {}
+    for backend in ("cuda", "torch"):
+        eng = BatchedHasEngine(service, cfg, batch_size=32, backend=backend,
+                               n_tenants=4, index=index)
+        log, step = [], eng._step_batch
+
+        def rec(group, rng, dataset, step=step, log=log):
+            out = step(group, rng, dataset)
+            log.extend((np.asarray(i), a) for i, a, _ in out)
+            return out
+
+        eng._step_batch = rec
+        eng.serve(queries)
+        served[backend] = log
+    accepts = [a for _, a in served["cuda"]]
+    assert accepts == [a for _, a in served["torch"]]
+    assert any(accepts) and not all(accepts)
+    for (a, _), (b_, _), q in zip(served["cuda"], served["torch"], queries):
+        diff = np.flatnonzero(a != b_)
+        if len(diff):
+            qe = torch.as_tensor(q["emb"], device=cuda_dev)
+            sa = service.corpus[torch.as_tensor(a[diff]).long()
+                                .to(cuda_dev)] @ qe
+            sb = service.corpus[torch.as_tensor(b_[diff]).long()
+                                .to(cuda_dev)] @ qe
+            assert float((sa - sb).abs().max()) <= 1e-5

@@ -169,12 +169,20 @@ def test_has_engine_third_positional_is_fallback(setup):
     assert eng.fuzzy_scope == CFG["nprobe"] / CFG["n_buckets"]
 
 
-@pytest.mark.parametrize("kw", [dict(fallback=object()),
+@pytest.mark.parametrize("kw", [dict(fallback="anns"),
                                 dict(n_tenants=2)])
 def test_has_engine_unported_options_raise(setup, kw):
+    """The two options that raised before their slice was ported now
+    build the engine: an ANNS fallback is kept, two tenants stack the
+    cache (neither raises NotImplementedError any more)."""
     _, _, ps = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        _port_engine(ps, **kw)
+    from repro_torch.core.has import tenant_count
+    from repro_torch.serving.engine import ANNSEngine
+    if kw.get("fallback") == "anns":
+        kw = dict(fallback=ANNSEngine(ps, n_buckets=32, nprobe=4))
+    eng = _port_engine(ps, **kw)
+    assert eng.fallback is kw.get("fallback")
+    assert tenant_count(eng.state) == kw.get("n_tenants", 1)
 
 
 def test_has_engine_reference_style_call_matches_reference(setup):

@@ -27,7 +27,7 @@ from repro_torch.serving.rag import serve_rag
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -75,6 +75,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     res = serve_rag(engine, queries, params, cfg, batch=2, prompt_len=16,
                     gen_len=2, device="cpu")
     assert res.tokens.shape == (2, 3)
+
+
+def test_tenant_reuse_and_quickstart_entry_points_refuse_cpu_fallback(
+        monkeypatch):
+    import importlib.util
+
+    from repro_torch.core.baselines import init_reuse_state
+    from repro_torch.core.has import init_tenant_states
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_tenant_states(HasConfig(h_max=4, d=8), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_reuse_state(4, 2, 8)
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qs.run(2, n_entities=20)
+    assert init_tenant_states(HasConfig(h_max=4, d=8), 2,
+                              device="cpu").q_ptr.shape == (2,)
+    assert init_reuse_state(4, 2, 8, device="cpu").valid.device.type == "cpu"
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
