@@ -12,7 +12,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
 3. hold each of the eight kernels against its plain PyTorch version at the
    main-path shapes (B=1 and B=64; the tenant path's B=32 shapes: grouped
    topk_search over 4 x 50,000 rows, ivf_scan at P=64, grouped
-   homology_validate over 4 x 5000 rows with an empty tenant;
+   homology_validate over 4 x 5000 rows with an empty tenant; the
+   scheduler's: topk_search B=32 over one 50,000-row ring,
+   homology_validate B=16 with padded rows (re-validation), homology_score
+   288 x 288 drafts against themselves (sharing);
    topk_search also at B=7 and B=65 and at k=1 and k=100; ivf_scan in
    both modes also at B=7 and 65, k=1 and MAX_K, P=1 and 512, a pool
    smaller than k, all-pad pools, clamped probes, a tie between two probes, d=770, 200 calls back to back and
@@ -79,7 +82,24 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    nprobe 64; the "ivf" ids of 300 queries against the plain scan's) and
    ``HasEngine(fallback=ANNSEngine("ivf"))`` on 400 queries;
    ``examples/quickstart_torch.py`` at its own size;
-8. the ``kernels`` JSON line, then the result line
+8. the continuous-batching scheduler (``examples/async_serving.py``'s
+   path, ``SchedulerConfig(max_spec_batch=32, full_batch=16,
+   full_max_wait_s=0.05)``) on phase 4's world, index and 1500 queries:
+   saturated (every request at t=0), with the counts set to 0 before and
+   topk_search, ivf_scan and homology_score > 0 after, ten speculation
+   dispatches (speculate_batch at B=32 and the sharing election over 288
+   rows) profiled one by one, and a ``backend="torch"`` replay (channels,
+   accepts, served ids, leader_idx, replica ids, t_done and every span
+   equal); Poisson arrivals at the reference's qps_saturating (32 /
+   ``_spec_time(32)``); 4 tenants on phase 7's stream (leakage audit with
+   fuzzy V and E off: 0 leaked ids, 0 cross-tenant followers; a torch
+   replay); three edge replicas under a fault plan with every kind, timed
+   off the fault-free makespan (the cloud events on the lone
+   ``LocalFlatBackend`` worker); ``shed`` and ``degrade`` at 4x the edge
+   rate with the SLO at 2.5x the unloaded reject path.  Every run: spans
+   conserved within 1e-9 s and none negative, every full and shared
+   result folded once (the rings' pointers count them);
+9. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -140,6 +160,14 @@ TAU = 0.2                      # HaS accept threshold (Algorithm 1 line 11)
 TENANTS = 4                    # partitions of the tenant path (phase 7)
 GROUPED_TOPK = "B=32,N=200000 grouped"        # phase-3 keys of the shapes
 GROUPED_HOMOLOGY = "B=32,H=20000 grouped"     # the tenant path gives them
+REVAL_BATCH = 16               # the scheduler's full_batch (re-validation)
+REVAL_SHAPE = "B=16,H=5000 reval"
+SHARE_ROWS = 256 + 32          # max_pending_leaders + max_spec_batch
+SHARE_SHAPE = "288x288 sharing"
+SCHED_KW = dict(max_spec_batch=BATCH, full_batch=REVAL_BATCH,
+                full_max_wait_s=0.05)   # examples/async_serving.py's
+SCHED_PROFILE = 10             # speculation dispatches profiled alone
+CHAOS_QUERIES = 1200           # the reference's chaos benchmark stream
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -573,6 +601,7 @@ def check_kernels(dev, timer) -> dict:
         50_000, rounding_mode="floor").int()
     q32, tqg = unit(32), (torch.arange(32, device=dev) % TENANTS).int()
     topk_case(GROUPED_TOPK, q32, tring, tvalid, row_group=trg, q_group=tqg)
+    topk_case("B=32,N=50000", q32, ring, valid)    # the scheduler's, T=1
     n_bytes = q32.numel() * 4 + tring.numel() * 4 + tvalid.numel() \
         + trg.numel() * 4 + tqg.numel() * 4 + 32 * K * 8
     bms, by = bound(n_bytes, 2 * 32 * tring.numel())
@@ -588,7 +617,7 @@ def check_kernels(dev, timer) -> dict:
         "kernel_device_us": sum(own.values()),
         "kernel_device_us_by_name": own}
     del tring, tvalid, trg
-    for b, q in ((1, q1), (64, q64)):
+    for b, q in ((1, q1), (32, q32), (64, q64)):
         n_bytes = q.numel() * 4 + ring.numel() * 4 + valid.numel() \
             + b * K * 8
         bms, by = bound(n_bytes, 2 * b * ring.numel())
@@ -662,6 +691,7 @@ def check_homology(dev, g, timer) -> dict:
     timed beside the new one."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.homology_score import (homology_score,
+                                                    homology_score_plain,
                                                     homology_validate,
                                                     homology_validate_plain)
     from repro_torch.utils import first_argmax
@@ -795,6 +825,41 @@ def check_homology(dev, g, timer) -> dict:
         "kernel_device_us": one_launch_us(
             "homology_validate grouped",
             lambda: homology_validate(tdr, tcache, tcvalid, **grp),
+            HOMOLOGY_KERNEL)}
+
+    # the scheduler's late re-validation: B=16 queued drafts (rows past
+    # the batch padded with -1) against the query cache
+    d16 = drafts(REVAL_BATCH, cache)
+    d16[REVAL_BATCH // 2 + 3:] = -1
+    hom_case(REVAL_SHAPE, d16, cache, cvalid)
+    n_bytes = d16.numel() * 4 + cache.numel() * 4 + h + REVAL_BATCH * h * 4 \
+        + REVAL_BATCH * 8
+    bms, by = bound(n_bytes, REVAL_BATCH * h * K * K)
+    rec[REVAL_SHAPE] = {
+        "ms": timer(lambda: homology_validate(d16, cache, cvalid)),
+        "plain_ms": timer(lambda: homology_validate_plain(d16, cache,
+                                                          cvalid)),
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        "kernel_device_us": one_launch_us(
+            "homology_validate B=16",
+            lambda: homology_validate(d16, cache, cvalid), HOMOLOGY_KERNEL)}
+    # the scheduler's sharing election: the registry's 256 pending leaders
+    # and a speculation batch of 32 scored against each other (rows neither
+    # rejected nor pending masked, as intra_batch_share passes them)
+    n_sh = SHARE_ROWS
+    vals = torch.full((n_sh, K), -1, device=dev, dtype=torch.int32)
+    live = torch.rand(n_sh, device=dev, generator=g) < 0.4
+    vals[live] = drafts(int(live.sum()), cache)
+    hom_case(SHARE_SHAPE, vals, vals, live)
+    n_bytes = 2 * vals.numel() * 4 + n_sh + n_sh * n_sh * 4
+    bms, by = bound(n_bytes, n_sh * n_sh * K * K)
+    rec[SHARE_SHAPE] = {
+        "ms": timer(lambda: homology_score(vals, vals, live)),
+        "plain_ms": timer(lambda: homology_score_plain(vals, vals, live)),
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        "kernel_device_us": one_launch_us(
+            "homology_score sharing", lambda: homology_score(vals, vals,
+                                                             live),
             HOMOLOGY_KERNEL)}
 
     tau = torch.tensor(TAU, dtype=torch.float32)
@@ -1969,6 +2034,361 @@ def quickstart_twin(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the continuous-batching scheduler at full width
+# ---------------------------------------------------------------------------
+
+def sched_checks(what, sched, res, n) -> dict:
+    """The repo's own checks of one scheduler result: every request served
+    on a known channel with k ids; spans conserved (residual within 1e-9 s,
+    none negative); every full and shared result folded into the primary
+    exactly once (its ring pointer counts them); the edge pool's log head
+    (lost rows included) agrees."""
+    ch = res.channels
+    known = ("draft", "reval", "shared", "full", "shed", "degraded",
+             "failed")
+    if len(ch) != n or not np.isin(ch, known).all() or \
+            res.served_ids.shape != (n, K) or \
+            not np.isfinite(res.t_done).all():
+        raise AssertionError(f"{what}: malformed result")
+    resid = float(np.abs(res.trace.conservation_residual()).max()) if n \
+        else 0.0
+    neg = min(float(res.trace.spans[s].min()) for s in res.trace.spans)
+    if resid > 1e-9 or neg < 0:
+        raise AssertionError(f"{what}: spans not conserved ({resid}, {neg})")
+    folded = int(np.sum(np.isin(ch, ("full", "shared"))))
+    q_ptr = sched.state.q_ptr.cpu().numpy()
+    if int(q_ptr.sum()) != folded:
+        raise AssertionError(f"{what}: {int(q_ptr.sum())} rows folded for "
+                             f"{folded} full and shared results")
+    pool = sched.edge_pool
+    if pool is not None and pool.log.head != folded:
+        raise AssertionError(f"{what}: edge log head {pool.log.head} for "
+                             f"{folded} folded rows")
+    return {"conservation_residual_max": resid, "folded_rows": folded}
+
+
+def sched_summary(res) -> dict:
+    s = res.summary()
+    s["channels"] = {str(c): int(np.sum(res.channels == c))
+                     for c in np.unique(res.channels)}
+    return s
+
+
+def sched_replay(what, got, want) -> dict:
+    """A ``backend="torch"`` replay against the kernels' run: channels,
+    accepts, served ids, leader_idx and t_done equal, spans equal."""
+    for f in ("channels", "accepts", "served_ids", "leader_idx", "t_done",
+              "replica_ids"):
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if not np.array_equal(a, b):
+            first = np.flatnonzero((a != b).reshape(len(a), -1).any(1))[0]
+            raise AssertionError(f"{what} replay: {f} differs first at "
+                                 f"request {int(first)}")
+    for s in got.trace.spans:
+        if not np.array_equal(got.trace.spans[s], want.trace.spans[s]):
+            raise AssertionError(f"{what} replay: span {s} differs")
+    return {"requests": len(got.channels), "equal": True}
+
+
+def sched_timed(counters, sched, *a, **kw):
+    """One ``serve`` with the counts set to 0 just before and read just
+    after: (result, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    res = sched.serve(*a, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, counters.read()
+
+
+def scheduler_path(dev, world, queries, service, index, counters) -> dict:
+    import gc
+
+    from repro_torch.core.has import HasConfig, intra_batch_share
+    from repro_torch.core.has import speculate_batch
+    from repro_torch.serving import scheduler as sched_mod
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               SchedulerConfig,
+                                               poisson_arrivals)
+
+    info = {}
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+    n = len(queries)
+
+    def make(cfg_=cfg, **kw):
+        return ContinuousBatchingScheduler(
+            service, cfg_, SchedulerConfig(**SCHED_KW, **kw), index=index)
+
+    # 1. saturated: every request at t=0; the re-validations and sharing
+    # elections are counted, to split homology_score's launches by shape
+    sched = make()
+    calls = {"revalidate": 0, "share": 0}
+    share_fn, reval_fn = sched_mod.intra_batch_share, sched._revalidate
+
+    def share_counted(*a, **kw):
+        calls["share"] += 1
+        return share_fn(*a, **kw)
+
+    def reval_counted(*a, **kw):
+        calls["revalidate"] += 1
+        return reval_fn(*a, **kw)
+
+    sched_mod.intra_batch_share, sched._revalidate = share_counted, \
+        reval_counted
+    try:
+        res, wall, launches = sched_timed(counters, sched, queries, None,
+                                          seed=0)
+    finally:
+        sched_mod.intra_batch_share = share_fn
+        del sched._revalidate
+    for name in ("topk_search", "ivf_scan", "homology_score"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "scheduler path")
+    sat = {"serve_s": wall, "launches": launches, "calls": calls,
+           "summary": sched_summary(res),
+           **sched_checks("saturated", sched, res, n)}
+    if not 0 < sat["summary"]["dar"] < 1:
+        raise AssertionError(f"saturated: implausible {sat['summary']}")
+    # a window of SCHED_PROFILE speculation dispatches on the scheduler's
+    # cache: speculate_batch at B=32, the host copies the loop reads, and
+    # the sharing election of its rejects over the registry's shape.  The
+    # stream continues: (entity, attr) pairs of served queries, each asked
+    # again with fresh noise (another seed's stream has another hot set)
+    rng = np.random.default_rng(3)
+    fresh = [{"emb": world.encode_query(int(queries[i]["entity"]),
+                                        int(queries[i]["attr"]), rng)}
+             for i in rng.choice(n, SCHED_PROFILE * BATCH, replace=False)]
+    cap = SHARE_ROWS - BATCH
+    tau_share = np.float32(SHARE_TAU_MULT * TAU)
+
+    def dispatch(group):
+        embs = torch.as_tensor(np.stack([q["emb"] for q in group]),
+                               device=dev)
+        out = speculate_batch(cfg, sched.state, sched.index, embs)
+        acc = out["accept"].cpu().numpy()
+        vals = torch.full((SHARE_ROWS, K), -1, dtype=torch.int32,
+                          device=dev)
+        vals[cap:] = out["val_ids"]
+        rej = np.zeros(SHARE_ROWS, bool)
+        rej[cap:] = ~acc
+        share = intra_batch_share(vals, rej, tau_share,
+                                  np.zeros(SHARE_ROWS, bool))
+        return int(acc.sum()), share["leader"].cpu().numpy()
+
+    groups = [fresh[i:i + BATCH] for i in range(0, len(fresh), BATCH)]
+    walls, accepted = [], []
+    for grp in groups:                  # each dispatch on the host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accepted.append(dispatch(grp)[0])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    # the window under the profiler in one session (a session of one
+    # dispatch loses its first kernel records at the window's edge)
+    sat["profile"] = profile_window(dispatch, groups,
+                                    accepted=lambda r: r[0])
+    sat["profile"]["wall_us_each"] = walls
+    sat["profile"]["accepted_each"] = accepted
+    # the same stream through the plain versions on the card
+    plain = make(backend="torch")
+    res_t, wall_t, _ = sched_timed(counters, plain, queries, None, seed=0)
+    sat["replay"] = sched_replay("saturated", res_t, res)
+    sat["replay"]["serve_s"] = wall_t
+    info["saturated"] = sat
+    del plain, res_t
+    gc.collect()
+
+    # 2. Poisson arrivals at the reference's qps_saturating
+    qps = BATCH / sched._spec_time(BATCH)
+    arr = poisson_arrivals(n, qps=qps, seed=7)
+    res, wall, launches = sched_timed(counters, sched, queries, arr, seed=0)
+    info["poisson"] = {"qps": qps, "serve_s": wall, "launches": launches,
+                       "summary": sched_summary(res),
+                       **sched_checks("poisson", sched, res, n)}
+    del sched
+    gc.collect()
+
+    # 3. four tenants on sweep_tenants' stream, the leakage audit on a
+    # fuzzy-off run, and a torch replay
+    mixed, _ = tenant_stream(world)
+    tids = np.array([q["tenant"] for q in mixed], np.int32)
+    ten = make(n_tenants=TENANTS)
+    res, wall, launches = sched_timed(counters, ten, mixed, None, seed=0,
+                                      tenant_ids=tids)
+    tinfo = {"queries": len(mixed), "serve_s": wall, "launches": launches,
+             "summary": sched_summary(res),
+             "per_tenant": {int(t): v for t, v in res.per_tenant().items()},
+             **sched_checks("tenants", ten, res, len(mixed))}
+    del ten
+    plain = make(n_tenants=TENANTS, backend="torch")
+    res_t, wall_t, _ = sched_timed(counters, plain, mixed, None, seed=0,
+                                   tenant_ids=tids)
+    tinfo["replay"] = sched_replay("tenants", res_t, res)
+    tinfo["replay"]["serve_s"] = wall_t
+    del plain, res_t
+    cfg_nf = dataclasses.replace(cfg, use_fuzzy_validation=False,
+                                 use_fuzzy_enhancement=False)
+    leak = make(cfg_nf, n_tenants=TENANTS)
+    rl = leak.serve(mixed, None, seed=0, tenant_ids=tids)
+    own = [set() for _ in range(TENANTS)]
+    for i in np.flatnonzero(rl.channels == "full"):
+        own[int(tids[i])].update(int(x) for x in rl.served_ids[i] if x >= 0)
+    acc = np.flatnonzero(np.isin(rl.channels, ("draft", "reval", "shared")))
+    leaked = sum(int(x) not in own[int(tids[i])]
+                 for i in acc for x in rl.served_ids[i] if x >= 0)
+    sh = np.flatnonzero(rl.channels == "shared")
+    cross = int(np.sum(rl.tenant_ids[rl.leader_idx[sh]]
+                       != rl.tenant_ids[sh]))
+    tinfo["leakage"] = {"leaked_ids": leaked, "audited": int(len(acc)),
+                        "cross_tenant_followers": cross,
+                        "followers": int(len(sh))}
+    if leaked or cross or not len(acc):
+        raise AssertionError(f"scheduler leakage audit: {tinfo['leakage']}")
+    info["tenants"] = tinfo
+    del leak
+    gc.collect()
+
+    # 4. faults: three edge replicas, every fault kind, timed off the
+    # fault-free makespan as the reference's chaos benchmark times them;
+    # the cloud events go to the lone LocalFlatBackend worker
+    nf = min(n, CHAOS_QUERIES)
+    kw = dict(edge_replicas=3, retry_max=3, retry_backoff_s=0.3)
+    base = make(**kw)
+    arr = poisson_arrivals(nf, qps=0.8 * BATCH / base._spec_time(BATCH),
+                           seed=11)
+    r_ff, wall_ff, l_ff = sched_timed(counters, base, queries[:nf], arr,
+                                      seed=0)
+    ff_checks = sched_checks("fault-free", base, r_ff, nf)
+    m = float(r_ff.summary()["makespan_s"])
+    del base
+    plan = FaultPlan(events=(
+        FaultEvent(t=round(0.15 * m, 6), kind="straggler", target=0,
+                   duration_s=round(0.20 * m, 6), factor=6.0),
+        FaultEvent(t=round(0.25 * m, 6), kind="worker_crash", target=0,
+                   down_s=round(0.15 * m, 6)),
+        FaultEvent(t=round(0.30 * m, 6), kind="delta_drop", count=2),
+        FaultEvent(t=round(0.40 * m, 6), kind="search_fail", target=0,
+                   duration_s=round(0.10 * m, 6)),
+        FaultEvent(t=round(0.50 * m, 6), kind="replica_crash", target=1),
+        FaultEvent(t=round(0.60 * m, 6), kind="delta_dup", count=2)))
+    chaos = make(**kw, fault_plan=plan)
+    res, wall, launches = sched_timed(counters, chaos, queries[:nf], arr,
+                                      seed=0)
+    s = sched_summary(res)
+    info["faults"] = {
+        "queries": nf, "plan": [dataclasses.asdict(e) for e in plan.events],
+        "fault_free": {"serve_s": wall_ff, "launches": l_ff,
+                       "summary": sched_summary(r_ff), **ff_checks},
+        "serve_s": wall, "launches": launches, "summary": s,
+        "lost_s": float(res.trace.spans["lost"].sum()),
+        "retry_backoff_s": float(res.trace.spans["retry_backoff"].sum()),
+        **sched_checks("faults", chaos, res, nf)}
+    if s["worker_deaths"] != 1 or s["replica_rebuilds"] < 1 or \
+            s["retries"] < 1:
+        raise AssertionError(f"fault plan did not engage: {s}")
+    del chaos
+    gc.collect()
+
+    # 5. overload: shed and degrade at 4x the edge rate, SLO 2.5x the
+    # unloaded reject path (the reference's overload sweep)
+    base = make()
+    lat = service.latency
+    spec_svc = base._spec_time(BATCH)
+    reject_path = (spec_svc + 0.5 * sum(lat.edge_rtt)
+                   + base._full_time(SCHED_KW["full_batch"])
+                   + 0.5 * sum(lat.cloud_rtt))
+    slo = 2.5 * reject_path
+    qps = 4.0 * BATCH / spec_svc
+    arr = poisson_arrivals(n, qps=qps, seed=11)
+    del base
+    over = {"slo_s": slo, "qps": qps}
+    for policy in ("shed", "degrade"):
+        sch = make(slo_deadline_s=slo, overload_policy=policy)
+        res, wall, launches = sched_timed(counters, sch, queries, arr,
+                                          seed=0)
+        over[policy] = {"serve_s": wall, "launches": launches,
+                        "summary": sched_summary(res),
+                        **sched_checks(policy, sch, res, n)}
+        key = "shed" if policy == "shed" else "degraded"
+        if over[policy]["summary"][key] <= 0:
+            raise AssertionError(f"overload {policy}: nothing {key}")
+        del sch
+        gc.collect()
+    info["overload"] = over
+    return info
+
+
+def report_scheduler(sp: dict) -> None:
+    """Phase 8's lines of the log."""
+    def line(title, r, extra=""):
+        s = r["summary"]
+        log(f"[scheduler {title}] modelled (virtual clock): throughput "
+            f"{s['throughput_qps']:.2f} qps, p50/p95/p99 "
+            f"{s['p50_latency_s'] * 1e3:.1f} / {s['p95_latency_s'] * 1e3:.1f}"
+            f" / {s['p99_latency_s'] * 1e3:.1f} ms, DAR {s['dar']:.4f}, CAR "
+            f"{s['car']:.4f}, DocHit {s['doc_hit_rate']:.4f}, full "
+            f"retrievals {s['full_retrievals']}, shared {s['shared_accepts']}"
+            f", reval {s['reval_accepts']}, channels {s['channels']}; "
+            f"{s['spec_batches']} speculation and {s['full_batches']} full "
+            f"batches; serve wall {r['serve_s']:.2f} s; launches "
+            f"{r['launches']}{extra}")
+
+    sat = sp["saturated"]
+    line("saturated", sat, f"; homology_score launches: "
+         f"{sat['summary']['spec_batches']} validations (B={BATCH}), "
+         f"{sat['calls']['revalidate']} re-validations (B={REVAL_BATCH}), "
+         f"{sat['calls']['share']} sharing elections ({SHARE_ROWS} x "
+         f"{SHARE_ROWS})")
+    pr = sat["profile"]
+    log(f"[scheduler] {pr['steps']} speculation dispatches (B={BATCH} "
+        f"speculate_batch + the sharing election over {SHARE_ROWS} rows; "
+        f"accepted {pr['accepted_each']}): wall each "
+        f"{[round(w, 1) for w in pr['wall_us_each']]} us; per dispatch "
+        f"wall {pr['wall_us_per_step']:.1f} us, device busy "
+        f"{pr['device_busy_us_per_step']:.1f} us (profiler), "
+        f"{pr['device_ops_per_step']:.1f} device ops, idle share "
+        f"{pr['device_idle_share']:.3f}; top us per dispatch: "
+        f"{json.dumps(pr['top_kernels_us_per_step'])}")
+    log(f"[scheduler saturated] backend=torch replay: channels, accepts, "
+        f"served ids, leader_idx, replica ids, t_done and every span equal "
+        f"({sat['replay']['requests']} requests, {sat['replay']['serve_s']:.2f}"
+        f" s); spans conserved within {sat['conservation_residual_max']:.3g}"
+        f" s; {sat['folded_rows']} rows folded once each")
+    line(f"Poisson {sp['poisson']['qps']:.2f} qps", sp["poisson"])
+    t = sp["tenants"]
+    line(f"tenants T={TENANTS}", t,
+         f"; per-tenant DAR {[round(v['dar'], 4) for v in t['per_tenant'].values()]}")
+    lk = t["leakage"]
+    log(f"[scheduler tenants] leakage audit (fuzzy V and E off): "
+        f"{lk['leaked_ids']} leaked ids over {lk['audited']} accepted, "
+        f"{lk['cross_tenant_followers']} cross-tenant followers of "
+        f"{lk['followers']}; backend=torch replay equal "
+        f"({t['replay']['serve_s']:.2f} s)")
+    f = sp["faults"]
+    s = f["summary"]
+    line(f"fault-free (R=3, {f['queries']} queries)", f["fault_free"])
+    line("faults (every kind)", f,
+         f"; retries {s['retries']}, hedges {s['hedges']}, replica rebuilds "
+         f"{s['replica_rebuilds']}, worker deaths {s['worker_deaths']}, "
+         f"failed {s['failed']}; lost {f['lost_s']:.3f} s, backoff "
+         f"{f['retry_backoff_s']:.3f} s; spans conserved within "
+         f"{f['conservation_residual_max']:.3g} s; {f['folded_rows']} rows "
+         f"folded once each")
+    o = sp["overload"]
+    for policy in ("shed", "degrade"):
+        s = o[policy]["summary"]
+        line(f"overload {policy} ({o['qps']:.1f} qps, SLO {o['slo_s']:.3f} "
+             f"s)", o[policy],
+             f"; shed {s['shed']}, degraded {s['degraded']}, p99 admitted "
+             f"{s['p99_admitted_latency_s'] * 1e3:.1f} ms, goodput "
+             f"{s['goodput_qps']:.2f} qps, SLO attainment "
+             f"{s['slo_attainment']:.4f}")
+
+
 def decode_run(params, cfg, prompt, backend):
     """One batch through prefill and RAG_GEN greedy decode steps, keeping
     every step's logits (f32): (tokens [B, RAG_GEN+1], logits)."""
@@ -2327,13 +2747,18 @@ def main() -> int:
     bat = batched_path(dev, world, queries, service, index, counters)
     report_batched(bat)
     qs = quickstart_twin(dev)
+    t0 = time.perf_counter()
+    sp = scheduler_path(dev, world, queries, service, index, counters)
+    sp["phase_s"] = time.perf_counter() - t0
+    report_scheduler(sp)
+    log(f"[scheduler] phase 8 in {sp['phase_s']:.1f} s")
     log(f"[quickstart twin] {qs['n_docs']} passages, d=64, {HAS_QUERIES} "
         f"queries on {qs['device']} in {qs['s']:.1f} s: full DocHit "
         f"{qs['full']['doc_hit_rate']:.4f}; HaS DAR {qs['has']['dar']:.4f}, "
         f"CAR {qs['has']['car']:.4f}, DocHit "
         f"{qs['has']['doc_hit_rate']:.4f}")
 
-    # phase 8: the kernels line and the result line
+    # phase 9: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -2370,7 +2795,7 @@ def main() -> int:
          "ptxas": ptxas, "dynamic_smem": dyn_smem,
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
          "main_path": info, "hybrid_path": hyb, "rag_path": rag,
-         "batched_path": bat, "quickstart_twin": qs,
+         "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -759,3 +759,45 @@ def test_cuda_batched_tenant_engine_vs_torch(cuda_dev):
             sb = service.corpus[torch.as_tensor(b_[diff]).long()
                                 .to(cuda_dev)] @ qe
             assert float((sa - sb).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(edge_replicas=3, n_tenants=2)],
+                         ids=["T1", "R3-T2"])
+def test_cuda_scheduler_vs_torch(cuda_dev, kw):
+    """The continuous-batching scheduler at a small world: the kernels
+    (backend None) and the plain versions (backend "torch") on the card
+    serve the same channels, ids, leaders, spans and t_done."""
+    from repro_torch.core.has import HasConfig
+    from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
+    from repro_torch.retrieval.ivf import build_ivf
+    from repro_torch.retrieval.service import RetrievalService
+    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               SchedulerConfig,
+                                               poisson_arrivals)
+
+    world = SyntheticWorld(WorldConfig(n_entities=2000, d=64))
+    service = RetrievalService(world, LatencyModel(), k=10, device=cuda_dev)
+    cfg = HasConfig(k=10, tau=0.2, h_max=300, doc_capacity=2000, nprobe=8,
+                    n_buckets=128, d=64)
+    index = build_ivf(service.corpus, cfg.n_buckets, seed=0)
+    queries = world.sample_queries(400, seed=1)
+    tids = np.arange(400, dtype=np.int32) % kw.get("n_tenants", 1)
+    arr = poisson_arrivals(400, qps=40.0, seed=7)
+    out = {}
+    for backend in (None, "torch"):
+        sched = ContinuousBatchingScheduler(
+            service, cfg, SchedulerConfig(max_spec_batch=32, full_batch=16,
+                                          full_max_wait_s=0.05,
+                                          backend=backend, **kw),
+            index=index)
+        out[backend] = sched.serve(queries, arr, seed=0, tenant_ids=tids)
+    a, b = out[None], out["torch"]
+    for f in ("channels", "served_ids", "leader_idx", "t_done",
+              "replica_ids", "cache_versions"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    for s in a.trace.spans:
+        np.testing.assert_array_equal(a.trace.spans[s], b.trace.spans[s])
+    assert 0 < a.summary()["dar"] < 1

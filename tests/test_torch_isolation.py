@@ -27,7 +27,8 @@ from repro_torch.serving.rag import serve_rag
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+       ROOT / "examples" / "async_serving_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -97,6 +98,33 @@ def test_tenant_reuse_and_quickstart_entry_points_refuse_cpu_fallback(
     assert init_tenant_states(HasConfig(h_max=4, d=8), 2,
                               device="cpu").q_ptr.shape == (2,)
     assert init_reuse_state(4, 2, 8, device="cpu").valid.device.type == "cpu"
+
+
+def test_scheduler_slice_entry_points_refuse_cpu_fallback(monkeypatch,
+                                                         tmp_path):
+    import importlib.util
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serving.edge_pool import EdgeReplicaPool
+    from repro_torch.serving.replication import WarmStandby, restore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HasConfig(h_max=4, d=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EdgeReplicaPool(cfg, 2)
+    mgr = CheckpointManager(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore(mgr, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WarmStandby(cfg, mgr).failover()
+    spec = importlib.util.spec_from_file_location(
+        "async_serving_torch", ROOT / "examples" / "async_serving_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twin.run(4, 10.0, n_entities=20)
+    assert EdgeReplicaPool(cfg, 2, device="cpu").states[1].q_ptr.device \
+        .type == "cpu"
+    assert restore(mgr, cfg, device="cpu") is None
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
