@@ -8,14 +8,22 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    both TF32 flags (TF32 must stay off: the port's f32 products are full
    f32);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   (one process per source, in parallel);
+   (one process per source, in parallel) while the two synthetic worlds
+   are built: the ``world_digests`` line (numpy's version, the md5s of
+   ``doc_emb``, ``entity_vecs``, ``attr_basis``, the doc-attr selection and
+   the granola stream's entities, attrs and embeddings, at the quickstart
+   twin's size and configuration 1's), asserted equal to the reference's
+   pinned digests (``repro_torch/data/digests.py``);
 3. hold each of the eight kernels against its plain PyTorch version at the
    main-path shapes (B=1 and B=64; the tenant path's B=32 shapes: grouped
    topk_search over 4 x 50,000 rows, ivf_scan at P=64, grouped
    homology_validate over 4 x 5000 rows with an empty tenant; the
    scheduler's: topk_search B=32 over one 50,000-row ring,
    homology_validate B=16 with padded rows (re-validation), homology_score
-   288 x 288 drafts against themselves (sharing);
+   288 x 288 drafts against themselves (sharing); phase 9's: ivf_scan f32
+   and int8 at B=16, P=32 over 1024 buckets of cap 977 (``IVFBackend``)
+   and of the rebuilt cap, lexical_score at B=16 over the grown
+   postings);
    topk_search also at B=7 and B=65 and at k=1 and k=100; ivf_scan in
    both modes also at B=7 and 65, k=1 and MAX_K, P=1 and 512, a pool
    smaller than k, all-pad pools, clamped probes, a tie between two probes, d=770, 200 calls back to back and
@@ -99,7 +107,28 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    rate with the SLO at 2.5x the unloaded reject path.  Every run: spans
    conserved within 1e-9 s and none negative, every full and shared
    result folded once (the rings' pointers count them);
-9. the ``kernels`` JSON line, then the result line
+   then the full scan's DocHit on configuration 1's and the quickstart
+   twin's 400 queries, asserted equal to the CPU reference's;
+9. the cloud backends on configuration 1's world, each path with the
+   counts set to 0 before it and read after: (a) ``ShardedMeshBackend``
+   (4 shards, 4 workers) against the flat scan on 400 queries (ids equal
+   in every row), then the saturated scheduler over it and a torch
+   replay; (b) ``HybridBackend(dense="sharded")`` under the full engine
+   and ``HasEngine(fusion="rrf")`` (400 queries) and a 300-query torch
+   replay; (c) live ingest into ``IVFBackend`` f32 and int8 (1024
+   clusters, nprobe 32, residual_cap 1024) and ``HybridBackend(dense=
+   "ann")`` with terms: one doc twice under one key, 2048 new passages,
+   a 4096-doc flood near centroid 0 that spills and rebuilds; after each,
+   64 queries with the kernels against torch, and at the end every held
+   doc found by its own embedding; (d) ``ReplicaBackend`` with two warm
+   standbys under the saturated scheduler: each log holds every folded
+   row once, and a failover equals the primary's rings; (e) 900 two-hop
+   complex queries: the sequential ``AutoRagPipeline`` (full, HaS) and
+   the scheduler with ``speculate_hops`` on and off, each replayed with
+   torch; (f) ``repro_torch.launch.serve.main`` with the scheduler and 25%
+   agentic traffic for each cloud backend, and two flag sets that exit 2;
+10. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
+   recsys kernels' on their own), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -168,6 +197,26 @@ SCHED_KW = dict(max_spec_batch=BATCH, full_batch=REVAL_BATCH,
                 full_max_wait_s=0.05)   # examples/async_serving.py's
 SCHED_PROFILE = 10             # speculation dispatches profiled alone
 CHAOS_QUERIES = 1200           # the reference's chaos benchmark stream
+SHARDS = 4                     # ShardedMeshBackend(n_shards=4, n_workers=4)
+ANN_INGEST = dict(n_clusters=1024, nprobe=32, residual_cap=1024)  # serve's
+INGEST_NEW, INGEST_FLOOD = 2048, 4096   # new passages, then a flood near c0
+INGEST_DOCS = 1 + INGEST_NEW + INGEST_FLOOD
+# the bucket capacity of the index rebuilt over the grown corpus
+REBUILT_CAP = int(np.ceil((5 * ENTITIES + INGEST_DOCS) / 1024 * 2.0))
+INGEST_QUERIES = 64            # kernels against torch after each batch
+AGENTIC_QUERIES = 900          # benchmarks/sched_agentic.py's complex queries
+CLI_QUERIES = 400
+CLI_BACKENDS = {"flat": [], "sharded": ["--retrieval-backend", "sharded"],
+                "replica": ["--retrieval-backend", "replica"],
+                "ann": ["--retrieval-backend", "ann"],
+                "hybrid sharded": ["--retrieval-backend", "hybrid",
+                                   "--hybrid-dense", "sharded"]}
+CLI_INVALID = (["--engine", "has", "--agentic-frac", "0.3"],
+               ["--engine", "sched", "--agentic-frac", "0.3", "--hops",
+                "0"])
+# full-scan doc hits of the 400 served queries in the CPU reference (numpy
+# 2.0.2): the card must build the same world and stream and find them
+REF_FULL_DOC_HITS = {"config1": 292, "quickstart": 249}
 # Criteo Kaggle's 26 categorical vocabularies (src/repro/models/recsys.py:28)
 CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
@@ -2534,6 +2583,857 @@ def rag_path(dev, world, service, index, counters) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (cont.): the cloud backends' new path shapes
+# ---------------------------------------------------------------------------
+
+def ivf_row(q, pr, vecs, ids, timer, scales=None, bias=None) -> dict:
+    """Timing row of one ivf_scan shape (either mode): call, plain, library,
+    bound and the kernel's device time (one launch a call)."""
+    from repro_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
+
+    b, d = q.shape
+    cap = ids.shape[1]
+    uniq = torch.unique(pr.long())
+    valid = int((ids[uniq] >= 0).sum())
+    per_vec = d * 4 if scales is None else d + 8
+    n_bytes = q.numel() * 4 + pr.numel() * 4 + uniq.numel() * cap * 4 \
+        + valid * per_vec + b * K * 8 + (0 if bias is None
+                                         else bias.numel() * 4)
+    bms, by = bound(n_bytes, 2 * b * pr.shape[1] * cap * d)
+
+    def library():
+        v = vecs[pr.long()].reshape(b, -1, d)
+        s = torch.bmm(v if scales is None else v.float(), q[:, :, None])
+        return torch.topk(s[..., 0], K)
+
+    return {"ms": timer(lambda: ivf_scan(q, pr, vecs, ids, K, scales, bias)),
+            "plain_ms": timer(lambda: ivf_scan_plain(q, pr, vecs, ids, K,
+                                                     scales, bias), reps=10),
+            "library_ms": timer(library, reps=10),
+            "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": one_launch_us(
+                f"ivf_scan {tuple(vecs.shape)}",
+                lambda: ivf_scan(q, pr, vecs, ids, K, scales, bias),
+                IVF_KERNELS[0])}
+
+
+def check_cloud_path_shapes(dev, timer, kres) -> None:
+    """The shapes phase 9 gives the kernels: ``ivf_scan`` f32 and int8 at
+    the scheduler's full batch (B=16) through ``IVFBackend`` (1024
+    clusters, nprobe 32, cap 977) and over the rebuilt index (cap grown to
+    REBUILT_CAP), and ``lexical_score`` over the grown postings (N =
+    500,000 + the ingested docs) at B=16."""
+    from repro_torch.kernels.lexical_score import (lexical_score,
+                                                   lexical_score_plain)
+    from repro_torch.retrieval.lexical import build_doc_terms, query_terms
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
+    d, n_b, b = 768, 1024, REVAL_BATCH
+    q = torch.randn(b, d, device=dev, generator=g)
+    q /= q.norm(dim=-1, keepdim=True)
+    pr = torch.stack([torch.randperm(n_b, device=dev, generator=g)[:32]
+                      for _ in range(b)]).int()
+    bias = torch.randn(b, 32, device=dev, generator=g) * 0.3
+    for cap, tag in ((ANN_CAP, "IVFBackend"), (REBUILT_CAP, "rebuilt")):
+        key = f"B={b},P=32,cap={cap} ({tag})"
+        ids = torch.randperm(n_b * cap, device=dev, generator=g).int() \
+            .reshape(n_b, cap)
+        ids[torch.rand(n_b, cap, device=dev, generator=g) < 0.5] = -1
+        vecs = torch.randn(n_b, cap, d, device=dev, generator=g)
+        vecs /= vecs.norm(dim=-1, keepdim=True)
+        vecs[ids < 0] = 0.0
+        ivf_check(kres["ivf_scan"], key, q, pr, vecs, ids, K)
+        kres["ivf_scan"][key] = ivf_row(q, pr, vecs, ids, timer)
+        del vecs
+        codes = torch.randint(-127, 128, (n_b, cap, d), dtype=torch.int8,
+                              device=dev, generator=g)
+        scales = torch.rand(n_b, cap, 2, device=dev, generator=g) * 1e-3 \
+            + 1e-4
+        ivf_check(kres["ivf_scan_int8"], key, q, pr, codes, ids, K, scales,
+                  bias)
+        kres["ivf_scan_int8"][key] = ivf_row(q, pr, codes, ids, timer,
+                                             scales, bias)
+        del codes, scales, ids
+        torch.cuda.empty_cache()
+    # the postings after phase 9's ingest: the world's 500,000 rows and the
+    # ingested docs' rows (the flood's without terms)
+    rec = kres["lexical_score"]
+    n_ent, n_new = ENTITIES, INGEST_DOCS - INGEST_FLOOD
+    doc_entity = np.concatenate([np.repeat(np.arange(n_ent), 5),
+                                 rng.integers(0, n_ent, n_new)])
+    attr_mask = np.zeros((len(doc_entity), 12), bool)
+    for _ in range(4):
+        attr_mask[np.arange(len(doc_entity)),
+                  rng.integers(0, 12, len(doc_entity))] = True
+    dt_np, dw_np = build_doc_terms(doc_entity, attr_mask, width=5)
+    dt_np = np.concatenate([dt_np, np.full((INGEST_FLOOD, 5), -1,
+                                           np.int32)])
+    dw_np = np.concatenate([dw_np, np.zeros((INGEST_FLOOD, 5), np.float32)])
+    dt, dw = (torch.as_tensor(a, device=dev) for a in (dt_np, dw_np))
+    for b in (REVAL_BATCH,):
+        qs = [query_terms(int(e), int(a)) for e, a in
+              zip(rng.integers(0, n_ent, b), rng.integers(0, 12, b))]
+        qt = torch.as_tensor(np.stack([t for t, _ in qs]), device=dev)
+        qw = torch.as_tensor(np.stack([w for _, w in qs]), device=dev)
+        key = f"B={b},N={dt.shape[0]} (after ingest)"
+        kv, ki = lexical_score(qt, qw, dt, dw, K)
+        pv, pi = lexical_score_plain(qt, qw, dt, dw, K)
+        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            raise AssertionError(f"lexical_score/{key}: kernel and plain "
+                                 "differ (must be bit-equal)")
+        hit_rows = int(torch.isin(dt, qt[qt >= 0]).any(dim=1).sum())
+        n_bytes = dt.numel() * 4 + hit_rows * dt.shape[1] * 4 \
+            + qt.numel() * 8 + b * K * 8
+        bms, by = bound(n_bytes, dt.numel())
+        rec["cases"][key] = {"max_abs_err": 0.0, "launches": 1}
+        rec[key] = {
+            "hit_rows": hit_rows,
+            "ms": timer(lambda: lexical_score(qt, qw, dt, dw, K)),
+            "plain_ms": timer(lambda: lexical_score_plain(qt, qw, dt, dw, K),
+                              reps=10),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": one_launch_us(
+                "lexical_score", lambda: lexical_score(qt, qw, dt, dw, K),
+                LEXICAL_KERNEL)}
+    del dt, dw
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 0: the world and the streams, against the reference's digests
+# ---------------------------------------------------------------------------
+
+def world_digests() -> tuple[dict, object]:
+    """Digests of the quickstart twin's world and stream and of
+    configuration 1's (whose world is returned for phases 4-9), held to
+    the reference's pinned ones; a mismatch fails the run, after printing
+    the keys that differ and where the installed numpy's own
+    ``Generator.zipf`` parts from the port's sampler."""
+    from repro_torch.data import digests
+    from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
+
+    t0 = time.perf_counter()
+    got = {"quickstart": digests.size_digests(SyntheticWorld, WorldConfig,
+                                              "quickstart")}
+    world = SyntheticWorld(WorldConfig(**digests.SIZES["config1"][0]))
+    got["config1"] = digests.size_digests(SyntheticWorld, WorldConfig,
+                                          "config1", world)
+    out = {"numpy": np.__version__, "digests": got,
+           "numpy_zipf_first_difference":
+               digests.numpy_zipf_first_difference(),
+           "mismatches": digests.mismatches(got, digests.PINNED),
+           "s": time.perf_counter() - t0}
+    log("world_digests " + json.dumps(out))
+    if out["mismatches"]:
+        raise AssertionError(
+            f"world digests differ from the reference's: "
+            f"{out['mismatches']}; numpy {np.__version__}'s own zipf parts "
+            f"from the port's sampler at (index, numpy, port) "
+            f"{out['numpy_zipf_first_difference']}")
+    return out, world
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: sharded, hybrid sharded, live ingest, replicas, agentic, the CLI
+# ---------------------------------------------------------------------------
+
+def sched_equal_hops(what, got, want) -> dict:
+    """``sched_replay`` plus the hop graphs: hop identity, speculation,
+    cancellations and each complex query's record equal."""
+    out = sched_replay(what, got, want)
+    for f in ("hop", "speculative"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{what} replay: {f} differs")
+    try:
+        np.testing.assert_equal(got.complex_records, want.complex_records)
+    except AssertionError as e:
+        raise AssertionError(f"{what} replay: complex records differ") from e
+    out["cancelled"] = int(np.sum(got.channels == "cancelled"))
+    return out
+
+
+def sched_line(title, s) -> None:
+    log(f"[{title}] modelled: DAR {s['dar']:.4f}, throughput "
+        f"{s['throughput_qps']:.2f} qps, p50/p95/p99 "
+        f"{s['p50_latency_s']:.1f} / {s['p95_latency_s']:.1f} / "
+        f"{s['p99_latency_s']:.1f} s, full batches {s['full_batches']}, "
+        f"channels {s['channels']}")
+
+
+def sharded_path(dev, world, queries, service, index, counters) -> dict:
+    """9a: ``ShardedMeshBackend`` (4 shards, 4 workers) against the flat
+    scan on the 400-query stream, then the saturated scheduler over it
+    with a ``backend="torch"`` replay."""
+    from repro_torch.core.has import HasConfig
+    from repro_torch.retrieval.service import (RetrievalService,
+                                               ShardedMeshBackend)
+    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               SchedulerConfig)
+
+    info = {}
+    sharded = ShardedMeshBackend(service.corpus, K, LatencyModel(),
+                                 n_shards=SHARDS, n_workers=SHARDS)
+    q = torch.as_tensor(np.stack([x["emb"] for x in queries[:FULL_QUERIES]]),
+                        device=dev)
+    fs, fi = service.backend.search(q)
+    ss, si = sharded.search(q)
+    if not torch.equal(fi, si):
+        bad = int((fi != si).any(1).nonzero()[0, 0])
+        raise AssertionError(f"sharded: ids differ from flat at row {bad}")
+    err = float_err(ss, fs, "sharded scores")
+    if err > 1e-6:
+        raise AssertionError(f"sharded: scores {err} from flat")
+    info["vs_flat"] = {"rows": FULL_QUERIES, "ids_equal": True,
+                       "max_abs_err": err}
+    svc = RetrievalService(world, LatencyModel(), k=K, backend=sharded)
+    # the cloud stage alone, one full_search a fresh query: sharded, flat
+    window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
+    info["profile_cloud"] = profile_window(
+        lambda q: (svc.full_search(q["emb"]), False), window)
+    info["profile_cloud_flat"] = profile_window(
+        lambda q: (service.full_search(q["emb"]), False), window)
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+
+    def make(**kw):
+        return ContinuousBatchingScheduler(
+            svc, cfg, SchedulerConfig(**SCHED_KW, **kw), index=index)
+
+    sched = make()
+    res, wall, launches = sched_timed(counters, sched, queries, None, seed=0)
+    info["saturated"] = {"serve_s": wall, "launches": launches,
+                         "n_full_workers": sched.n_full_workers,
+                         "summary": sched_summary(res),
+                         "spans_s": {s: float(v.sum()) for s, v in
+                                     res.trace.spans.items()},
+                         **sched_checks("sharded", sched, res, len(queries))}
+    if res.max_inflight_full_batches < 2:
+        raise AssertionError("sharded: the worker pool never overlapped")
+    res_t, wall_t, _ = sched_timed(counters, make(backend="torch"), queries,
+                                   None, seed=0)
+    info["saturated"]["replay"] = sched_replay("sharded", res_t, res)
+    info["saturated"]["replay"]["serve_s"] = wall_t
+    return info
+
+
+def hybrid_sharded_path(dev, world, queries, index, counters) -> dict:
+    """9b: ``HybridBackend(dense="sharded")`` under the full engine and
+    ``HasEngine(fusion="rrf")``, and a ``backend="torch"`` replay."""
+    from repro_torch.core.has import HasConfig
+    from repro_torch.retrieval.fusion import _fuse_tail
+    from repro_torch.retrieval.service import HybridBackend, RetrievalService
+    from repro_torch.serving.engine import FullRetrievalEngine, HasEngine
+    from repro_torch.serving.latency import LatencyModel
+
+    info = {}
+    kw = dict(HYBRID, dense="sharded", n_shards=SHARDS)
+    kw.pop("ann_kwargs")
+    hybrid = HybridBackend(world.doc_emb, K, LatencyModel(), world.doc_terms,
+                           world.doc_term_weights, **kw)
+    service = RetrievalService(world, LatencyModel(), k=K, backend=hybrid)
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768, fusion="rrf")
+    qs = queries[:FULL_QUERIES]
+    counters.reset()
+    t0 = time.perf_counter()
+    full = FullRetrievalEngine(service).serve(qs)
+    has = HasEngine(service, cfg, index=index)
+    steps = recording(has)
+    res = has.serve(qs)
+    info["serve_s"] = time.perf_counter() - t0
+    info["launches"] = counters.read()
+    info["full"], info["has"] = full.summary(), res.summary()
+    check_steps("hybrid sharded", steps, info["has"])
+    window = world.sample_queries(PROFILE_STEPS, **stream_kw(), seed=2)
+    info["profile_cloud"] = profile_window(
+        lambda q: (service.full_search(q["emb"], q["terms"],
+                                       q["term_weights"]), False), window)
+    plain = copy.copy(hybrid)
+    plain.backend = "torch"
+    replay = HasEngine(RetrievalService(world, LatencyModel(), k=K,
+                                        backend=plain),
+                       cfg, backend="torch", index=index)
+    plain_steps = recording(replay)
+    replay.serve(qs[:REPLAY_QUERIES])
+    swaps = 0
+    for i, (a, b) in enumerate(zip(steps, plain_steps)):
+        if a[1] != b[1]:
+            raise AssertionError(f"hybrid sharded replay: accept differs at "
+                                 f"query {i}")
+        if not (a[0] != b[0]).any():
+            continue
+        if a[1] and dense_near_tie(service, qs[i]["emb"], a[0], b[0]):
+            swaps += int((a[0] != b[0]).sum())
+            continue
+        raise AssertionError(f"hybrid sharded replay: ids differ at query "
+                             f"{i}")
+    # the fusion tail alone, on one dense list, kernels against plain
+    q = torch.as_tensor(np.stack([x["emb"] for x in qs[:64]]), device=dev)
+    qt = torch.as_tensor(np.stack([x["terms"] for x in qs[:64]]),
+                         device=dev).int()
+    qw = torch.as_tensor(np.stack([x["term_weights"] for x in qs[:64]]),
+                         device=dev).float()
+    from repro_torch.retrieval.distributed import sharded_topk_reference
+    _, i_d = sharded_topk_reference(hybrid.corpus, q, hybrid.dense_k,
+                                    n_shards=SHARDS)
+    tails = [_fuse_tail(hybrid.corpus, q, i_d, qt, qw, hybrid._terms,
+                        hybrid._tw, k=K, kl=hybrid.lexical_k,
+                        rrf_k=hybrid.rrf_k,
+                        diversify_sim=hybrid.diversify_sim, backend=be,
+                        tile_n=hybrid.tile_n)[1] for be in (None, "torch")]
+    if not torch.equal(*tails):
+        raise AssertionError("hybrid sharded: lexical + fusion differ on "
+                             "the same dense list")
+    info["replay"] = {"queries": len(plain_steps), "accept_equal": True,
+                      "ids_equal_except_draft_near_ties": swaps}
+    return info
+
+
+def new_passages(world, n, rng):
+    """``n`` passages of existing entities, made with the world's recipe
+    (entity vector, the mix of 4 of its attributes, unit noise), their
+    postings rows, entities and attribute masks."""
+    from repro_torch.retrieval.lexical import build_doc_terms
+
+    cfg = world.cfg
+
+    def unit(x):
+        return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True),
+                              1e-8)
+
+    ent = rng.integers(0, cfg.n_entities, n)
+    sel = rng.random((n, cfg.attrs_per_entity)).argsort(axis=1)
+    sel = sel[:, :cfg.attrs_per_doc]
+    mask = np.zeros((n, cfg.attrs_per_entity), bool)
+    np.put_along_axis(mask, sel, True, axis=1)
+    mix = world.attr_basis[sel].sum(axis=1) / np.sqrt(cfg.attrs_per_doc)
+    emb = (cfg.entity_weight * world.entity_vecs[ent]
+           + cfg.attr_weight_doc * mix
+           + cfg.noise_doc * unit(rng.normal(size=(n, cfg.d))))
+    terms, weights = build_doc_terms(ent, mask,
+                                     width=world.doc_terms.shape[1])
+    return unit(emb).astype(np.float32), terms, weights, ent, mask
+
+
+def flood_near(centroid, n, rng):
+    x = centroid[None] + 0.01 * rng.normal(size=(n, len(centroid)))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def ivf_backend_score_of(be, q):
+    """score_of(row, id) of an ``IVFBackend`` search, recomputed from its
+    host arrays: the bucket slot's f32 or int8 score (centroid term from
+    the probe product), or the residual row's f32 score."""
+    from repro_torch.utils import stable_topk
+
+    qh = q.cpu().double().numpy()
+    cvals, probe = stable_topk(q @ be.index.centroids.T, be.nprobe)
+    cvals, probe = cvals.cpu().numpy(), probe.cpu().numpy()
+    h = q.shape[1] // 2
+
+    def score_of(r, gid):
+        res = np.flatnonzero(be._res_ids_np[:be.residual_count] == gid)
+        if len(res):
+            return float(qh[r] @ be._res_vecs_np[res[0]])
+        c, s = (int(x[0]) for x in np.nonzero(be._bids_np == gid))
+        at = np.flatnonzero(probe[r] == c)
+        if not len(at):
+            return -float("inf")
+        v = be._bvecs_np[c, s].astype(np.float64)
+        if not be.compressed:
+            return float(qh[r] @ v)
+        sc = be._bscales_np[c, s]
+        return float((qh[r, :h] @ v[:h]) * sc[0] + (qh[r, h:] @ v[h:])
+                     * sc[1] + cvals[r, at[0]])
+
+    return score_of
+
+
+def ingest_round(be, q, counters) -> dict:
+    """``be.search`` with the kernels against ``backend="torch"`` on the
+    same index, in batches of REVAL_BATCH (the scheduler's full batch):
+    scores within SCORE_TOL, ids equal except proven near-ties.  Also the
+    kernels' launches of these searches."""
+    errs, swaps = [], 0
+    before = counters.read()
+    for lo in range(0, q.shape[0], REVAL_BATCH):
+        qb = q[lo:lo + REVAL_BATCH]
+        kv, ki = be.search(qb)
+        after = counters.read()
+        be.backend = "torch"
+        try:
+            pv, pi = be.search(qb)
+        finally:
+            be.backend = None
+        e, sw = compare_topk("ingest replay", kv, ki, pv, pi,
+                             ivf_backend_score_of(be, qb))
+        errs.append(e)
+        swaps += sw
+    return {"queries": int(q.shape[0]), "max_abs_err": max(errs),
+            "near_tie_swaps": swaps,
+            "launches": {n: after[n] - before[n] for n in after}}
+
+
+def found_by_own_embedding(be, vecs, ids) -> dict:
+    """Each ingested doc that the index holds (a bucket or the residual)
+    is in the top-k of its own embedding.  Before a rebuild the index
+    holds every one (a bucket or the residual); a rebuild cuts the docs of
+    buckets past their capacity, as the reference's build does."""
+    dev = be.corpus.device
+    held = np.isin(ids, be._bids_np) | np.isin(
+        ids, be._res_ids_np[:be.residual_count])
+    missed = 0
+    for lo in range(0, len(ids), 512):
+        _, got = be.search(torch.as_tensor(vecs[lo:lo + 512], device=dev))
+        got = got.cpu().numpy()
+        for j, gid in enumerate(ids[lo:lo + 512]):
+            if held[lo + j] and gid not in got[j]:
+                missed += 1
+    if missed:
+        raise AssertionError(f"ingest: {missed} held docs not found by "
+                             "their own embedding")
+    return {"docs": int(len(ids)), "held": int(held.sum()), "found": True}
+
+
+def hybrid_round(be, q, qt, qw, counters) -> dict:
+    """The hybrid stage's search with the kernels against
+    ``backend="torch"``, in batches of REVAL_BATCH: ids equal, except rows
+    where the int8 dense channel swapped near-tied candidates and the
+    lexical + fusion tail then agrees on the same dense list."""
+    from repro_torch.retrieval.fusion import _fuse_tail, ivf_ann_body
+
+    swaps, before = 0, counters.read()
+    for lo in range(0, q.shape[0], REVAL_BATCH):
+        args = [a[lo:lo + REVAL_BATCH] for a in (q, qt, qw)]
+        got = be.search(*args)
+        after = counters.read()
+        be.backend = "torch"
+        try:
+            want = be.search(*args)
+        finally:
+            be.backend = None
+        for r in (got[1] != want[1]).any(1).nonzero()[:, 0].tolist():
+            qr, tr, wr = (a[r:r + 1] for a in args)
+            dense = [ivf_ann_body(be._ivf.index, be._ivf._res_vecs,
+                                  be._ivf._res_ids, qr, nprobe=be._ivf.nprobe,
+                                  k=be.dense_k, backend=x)
+                     for x in (None, "torch")]
+            _, sw = compare_topk("hybrid ingest dense channel", *dense[0],
+                                 *dense[1], ivf_backend_score_of(be._ivf, qr))
+            tails = [_fuse_tail(be.corpus, qr, dense[1][1], tr, wr,
+                                be._terms, be._tw, k=be.k, kl=be.lexical_k,
+                                rrf_k=be.rrf_k,
+                                diversify_sim=be.diversify_sim, backend=x,
+                                tile_n=be.tile_n)[1] for x in (None, "torch")]
+            if not sw or not torch.equal(*tails):
+                raise AssertionError(f"hybrid ingest: ids differ at query "
+                                     f"{lo + r}, not by a near-tie")
+            swaps += sw
+    return {"queries": int(q.shape[0]), "near_tie_swaps": swaps,
+            "launches": {n: after[n] - before[n] for n in after}}
+
+
+def ingest_path(dev, world, queries, counters) -> dict:
+    """9c: live ingest into ``IVFBackend`` (f32 and int8, the serve
+    defaults: 1024 clusters, nprobe 32, residual_cap 1024) and into
+    ``HybridBackend(dense="ann")`` with terms.  After each batch: 64
+    queries (half the stream's, half asking the new docs' entities) with
+    the kernels against ``backend="torch"``; at the end, every ingested
+    doc the index holds is found by its own embedding."""
+    import gc
+
+    from repro_torch.retrieval.service import HybridBackend, IVFBackend
+    from repro_torch.serving.latency import LatencyModel
+
+    info = {}
+    rng_q = np.random.default_rng(12)
+    half = INGEST_QUERIES // 2
+    stream = queries[:half]
+
+    def probe_queries(ent, mask):
+        picks = rng_q.choice(len(ent), half, replace=len(ent) < half)
+        asked = [(int(ent[i]), int(np.flatnonzero(mask[i])[0]))
+                 for i in picks]
+        embs = [x["emb"] for x in stream] + [
+            world.encode_query(e, a, rng_q) for e, a in asked]
+        from repro_torch.retrieval.lexical import query_terms
+        terms = [query_terms(x["entity"], x["attr"]) for x in stream] + [
+            query_terms(e, a) for e, a in asked]
+        return (torch.as_tensor(np.stack(embs), device=dev),
+                torch.as_tensor(np.stack([t for t, _ in terms]),
+                                device=dev).int(),
+                torch.as_tensor(np.stack([w for _, w in terms]),
+                                device=dev).float())
+
+    def run_batches(be, dense, ingest, check, name):
+        rng = np.random.default_rng(21)
+        rec = {"rounds": []}
+        vecs_all, ids_all = [], []
+        one = new_passages(world, 1, rng)
+        new = new_passages(world, INGEST_NEW, rng)
+        # one doc twice under one key, the new passages, then the flood
+        for i, (key, batch) in enumerate((("one", one), ("one", one),
+                                          ("new", new), ("flood", None))):
+            if key == "flood":                    # near the current c0
+                batch = (flood_near(dense._cents_np[0].copy(), INGEST_FLOOD,
+                                    rng), None, None, new[3], new[4])
+            rows0 = be._corpus_np.shape[0]
+            ids = np.asarray(ingest(be, batch, key))
+            if i == 1:                            # the repeated key
+                if be._corpus_np.shape[0] != rows0 or \
+                        not np.array_equal(ids, ids_all[0]):
+                    raise AssertionError(f"ingest {name}: a repeated "
+                                         "ingest_key grew the corpus")
+            else:
+                vecs_all.append(batch[0])
+                ids_all.append(ids)
+            rnd = {"batch": key, "docs": int(len(ids)),
+                   "residual_count": dense.residual_count,
+                   "rebuilds": dense.rebuilds,
+                   "capacity": int(dense._bids_np.shape[1]),
+                   **check(be, probe_queries(*batch[3:5])),
+                   "found": found_by_own_embedding(
+                       dense, np.concatenate(vecs_all),
+                       np.concatenate(ids_all))}
+            rec["rounds"].append(rnd)
+            log(f"[ingest {name}] after '{key}' ({len(ids)} docs): "
+                f"residual_count {dense.residual_count}, rebuilds "
+                f"{dense.rebuilds}, cap {dense._bids_np.shape[1]}; "
+                f"{rnd['queries']} queries in batches of {REVAL_BATCH}, "
+                f"kernels = torch (near-tie swaps {rnd['near_tie_swaps']}); "
+                f"{rnd['found']['held']} of {rnd['found']['docs']} ingested "
+                f"docs held, each found by its own embedding")
+        if dense.rebuilds < 1:
+            raise AssertionError(f"ingest {name}: the flood did not "
+                                 "overflow the residual")
+        if dense.index.capacity != REBUILT_CAP:
+            raise AssertionError(f"ingest {name}: rebuilt cap "
+                                 f"{dense.index.capacity} != {REBUILT_CAP}")
+        if any(r["found"]["held"] != r["found"]["docs"]
+               for r in rec["rounds"] if not r["rebuilds"]):
+            raise AssertionError(f"ingest {name}: a doc was lost before "
+                                 "any rebuild")
+        rec["found"] = rec["rounds"][-1]["found"]
+        return rec
+
+    for compressed in (False, True):
+        name = "ivf_int8" if compressed else "ivf_f32"
+        counters.reset()
+        t0 = time.perf_counter()
+        be = IVFBackend(world.doc_emb, K, LatencyModel(),
+                        compressed=compressed, n_workers=2, device=dev,
+                        **ANN_INGEST)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cap0 = be.index.capacity
+        rec = run_batches(
+            be, be, lambda b, batch, key: b.ingest_docs(batch[0],
+                                                        ingest_key=key),
+            lambda b, qs: ingest_round(b, qs[0], counters), name)
+        rec.update(build_s=build_s, capacity_first=cap0,
+                   launches=counters.read())
+        info[name] = rec
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    counters.reset()
+    hybrid = HybridBackend(world.doc_emb, K, LatencyModel(), world.doc_terms,
+                           world.doc_term_weights, **HYBRID)
+
+    def h_ingest(be, batch, key):
+        n0 = be._corpus_np.shape[0]
+        ids = None if key == "one" else np.arange(n0, n0 + len(batch[0]))
+        return be.ingest_docs(batch[0], ids, terms=batch[1],
+                              term_weights=batch[2], ingest_key=key)
+
+    rec = run_batches(hybrid, hybrid._ivf, h_ingest,
+                      lambda b, qs: hybrid_round(b, *qs, counters),
+                      "hybrid ann")
+    if hybrid.corpus.shape[0] != world.cfg.n_docs + INGEST_DOCS or \
+            hybrid._terms.shape[0] != hybrid.corpus.shape[0]:
+        raise AssertionError("hybrid ingest: the channels did not grow in "
+                             "lockstep")
+    rec["launches"] = counters.read()
+    rec["postings_rows"] = int(hybrid._terms.shape[0])
+    info["hybrid_ann"] = rec
+    del hybrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def replica_path(dev, world, queries, service, index, counters) -> dict:
+    """9d: ``serve --retrieval-backend replica``: ``ReplicaBackend`` over
+    the flat scan with two warm standbys, under the saturated scheduler;
+    every folded row in each standby's log once, and a failover that
+    resumes with the primary's rings and pointers exactly."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.has import HasConfig
+    from repro_torch.retrieval.service import (LocalFlatBackend,
+                                               ReplicaBackend,
+                                               RetrievalService)
+    from repro_torch.serving.latency import LatencyModel
+    from repro_torch.serving.replication import WarmStandby
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               SchedulerConfig)
+
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        standbys = [WarmStandby(cfg, CheckpointManager(f"{tmp}/standby{i}"),
+                                snapshot_every=10_000, max_lag=50_000)
+                    for i in range(2)]
+        lat = LatencyModel()
+        backend = ReplicaBackend(LocalFlatBackend(service.corpus, K, lat),
+                                 standbys, service.corpus)
+        svc = RetrievalService(world, lat, k=K, backend=backend)
+        sched = ContinuousBatchingScheduler(svc, cfg,
+                                           SchedulerConfig(**SCHED_KW),
+                                           index=index)
+        res, wall, launches = sched_timed(counters, sched, queries, None,
+                                          seed=0)
+        info = {"serve_s": wall, "launches": launches,
+                "n_full_workers": sched.n_full_workers,
+                "summary": sched_summary(res),
+                **sched_checks("replica", sched, res, len(queries))}
+        folded = info["folded_rows"]
+        fields = [f.name for f in dataclasses.fields(sched.state)]
+        for i, sb in enumerate(standbys):
+            rows = [q.tobytes() for q, _, _ in sb.log]
+            if sb._step != folded or len(rows) != folded or \
+                    len(set(rows)) != folded:
+                raise AssertionError(
+                    f"replica: standby {i} logged {len(rows)} rows "
+                    f"({len(set(rows))} distinct, step {sb._step}) for "
+                    f"{folded} folded")
+            rec = sb.failover()
+            for f in fields:
+                if not torch.equal(getattr(rec, f), getattr(sched.state, f)):
+                    raise AssertionError(f"replica: standby {i} failover "
+                                         f"{f} differs from the primary")
+        info["standbys"] = {"count": len(standbys), "rows_each": folded,
+                            "failover_exact": True}
+    return info
+
+
+def agentic_path(dev, world, service, index, counters) -> dict:
+    """9e: ``TwoHopDataset`` complex queries, the sequential
+    ``AutoRagPipeline`` (full against HaS) and the scheduler with
+    ``speculate_hops`` on and off (Poisson at 0.35x the edge rate), each
+    with a ``backend="torch"`` replay."""
+    from repro_torch.core.has import HasConfig
+    from repro_torch.serving.agentic import AutoRagPipeline, TwoHopDataset
+    from repro_torch.serving.engine import HasEngine
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               SchedulerConfig,
+                                               poisson_arrivals)
+
+    info = {}
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+    ds = TwoHopDataset(world, seed=0)
+    cqs = ds.sample(AGENTIC_QUERIES, seed=2)
+    counters.reset()
+    t0 = time.perf_counter()
+    base = AutoRagPipeline(ds, None, service).run(cqs)
+    has = HasEngine(service, cfg, index=index)
+    steps = recording(has)
+    plug = AutoRagPipeline(ds, has, service).run(cqs)
+    info["seq_s"] = time.perf_counter() - t0
+    info["seq_launches"] = counters.read()
+    replay = HasEngine(service, cfg, backend="torch", index=index)
+    plain_steps = recording(replay)
+    plug_t = AutoRagPipeline(ds, replay, service).run(cqs)
+    swaps = 0
+    for i, (a, b) in enumerate(zip(steps, plain_steps)):
+        if a[1] != b[1]:
+            raise AssertionError(f"agentic sequential replay: accept "
+                                 f"differs at step {i}")
+        if (a[0] != b[0]).any():
+            swaps += int((a[0] != b[0]).sum())
+    if (plug_t["dar"], plug_t["accuracy"]) != (plug["dar"],
+                                               plug["accuracy"]):
+        raise AssertionError("agentic sequential replay: DAR or accuracy "
+                             "differ")
+    cut = (plug["retrieval_latency"] - base["retrieval_latency"]) \
+        / base["retrieval_latency"]
+    info["sequential"] = {"full": base, "has": plug, "retrieval_cut": cut,
+                          "replay": {"steps": len(plain_steps),
+                                     "accept_equal": True,
+                                     "id_differences": swaps}}
+    probe = ContinuousBatchingScheduler(service, cfg, SchedulerConfig(),
+                                        index=index)
+    qps = 0.35 * probe.sched.max_spec_batch / probe._spec_time(
+        probe.sched.max_spec_batch)
+    arrivals = poisson_arrivals(AGENTIC_QUERIES, qps=qps, seed=11)
+    info["qps"] = qps
+    for speculate in (True, False):
+        arm = {}
+        for be in (None, "torch"):
+            eng = ContinuousBatchingScheduler(
+                service, cfg, SchedulerConfig(speculate_hops=speculate,
+                                              backend=be), index=index)
+            torch.cuda.synchronize()
+            counters.reset()
+            t0 = time.perf_counter()
+            out = AutoRagPipeline(ds, eng, service).run(cqs,
+                                                        arrivals=arrivals)
+            torch.cuda.synchronize()
+            arm[be] = (out, time.perf_counter() - t0, counters.read())
+        (out, wall, launches), (out_t, wall_t, _) = arm[None], arm["torch"]
+        t_res = out_t.pop("sched_result")
+        res = out.pop("sched_result")
+        n = len(res.channels)
+        resid = float(np.abs(res.trace.conservation_residual()).max())
+        if resid > 1e-9 or (res.t_done < 0).any():
+            raise AssertionError(f"agentic scheduler: spans {resid}")
+        key = "pipelined" if speculate else "sequential_hops"
+        info[key] = {"summary": out, "serve_s": wall, "launches": launches,
+                     "requests": n, "conservation_residual_max": resid,
+                     "sched": sched_summary(res),
+                     "replay": sched_equal_hops(f"agentic {key}", t_res,
+                                                res)}
+        info[key]["replay"]["serve_s"] = wall_t
+        np.testing.assert_equal(out_t, out)
+    return info
+
+
+def cli_path(counters) -> dict:
+    """9f: ``repro_torch.launch.serve.main`` with the scheduler and agentic
+    traffic for each cloud backend, and two invalid flag sets (exit 2)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    info = {}
+    base = ["--engine", "sched", "--agentic-frac", "0.25", "--queries",
+            str(CLI_QUERIES)]
+    for name, extra in CLI_BACKENDS.items():
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = serve.main(base + extra)
+        torch.cuda.synchronize()
+        s = res.summary()
+        if len(res.channels) < CLI_QUERIES or s["complex_n"] != \
+                round(0.25 * CLI_QUERIES):
+            raise AssertionError(f"serve {name}: {s}")
+        info[name] = {"s": time.perf_counter() - t0,
+                      "launches": counters.read(),
+                      "dar": s["dar"], "complex_n": s["complex_n"],
+                      "complex_dar": s["complex_dar"],
+                      "header": buf.getvalue().splitlines()[0]}
+    for bad in CLI_INVALID:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            try:
+                serve.main(bad)
+            except SystemExit as e:
+                code = e.code
+            else:
+                code = 0
+        if code != 2:
+            raise AssertionError(f"serve {bad}: exit {code}, want 2")
+        info[" ".join(bad)] = {"exit": code,
+                               "error": err.getvalue().strip()
+                               .splitlines()[-1]}
+    return info
+
+
+def phase9_launches(p9) -> dict[str, int]:
+    """Each kernel's launches summed over phase 9's paths, each read with
+    the counts set to 0 just before it."""
+    runs = [p9["sharded"]["saturated"]["launches"],
+            p9["hybrid_sharded"]["launches"],
+            p9["replica"]["launches"],
+            p9["agentic"]["seq_launches"],
+            p9["agentic"]["pipelined"]["launches"],
+            p9["agentic"]["sequential_hops"]["launches"]]
+    runs += [r["launches"] for r in p9["ingest"].values()]
+    runs += [r["launches"] for r in p9["cli"].values() if "launches" in r]
+    return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+
+def report_phase9(p9) -> None:
+    """Phase 9's lines of the log."""
+    def window(title, pr):
+        log(f"[{title}] cloud stage alone, {pr['steps']} fresh queries: "
+            f"{pr['wall_us_per_step']:.1f} us/step wall, device busy "
+            f"{pr['device_busy_us_per_step']:.1f} us/step (profiler), "
+            f"{pr['device_ops_per_step']:.1f} device ops/step, idle share "
+            f"{pr['device_idle_share']:.3f}; top kernels us/step: "
+            f"{json.dumps(pr['top_kernels_us_per_step'])}")
+
+    sh = p9["sharded"]
+    log(f"[9a sharded] {SHARDS} shards vs flat on {FULL_QUERIES} queries: "
+        f"ids equal in every row, scores within "
+        f"{sh['vs_flat']['max_abs_err']:.3g}")
+    window("9a sharded", sh["profile_cloud"])
+    window("9a flat, the same window", sh["profile_cloud_flat"])
+    sat = sh["saturated"]
+    sched_line("9a sharded scheduler, saturated", sat["summary"])
+    log(f"[9a sharded scheduler] {sat['n_full_workers']} workers, serve "
+        f"{sat['serve_s']:.2f} s wall; spans (virtual s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sat["spans_s"].items())
+        + f"; torch replay equal ({sat['replay']['serve_s']:.2f} s); "
+        f"launches {sat['launches']}")
+    hs = p9["hybrid_sharded"]
+    log(f"[9b hybrid sharded] full DocHit {hs['full']['doc_hit_rate']:.4f}; "
+        f"HaS(rrf) DAR {hs['has']['dar']:.4f}, DocHit "
+        f"{hs['has']['doc_hit_rate']:.4f}; {hs['serve_s']:.1f} s; replay of "
+        f"{hs['replay']['queries']}: accept bits and ids equal (draft "
+        f"near-tie swaps {hs['replay']['ids_equal_except_draft_near_ties']})"
+        f"; launches {hs['launches']}")
+    window("9b hybrid sharded", hs["profile_cloud"])
+    for name, r in p9["ingest"].items():
+        log(f"[9c ingest {name}] every held doc found by its own embedding "
+            f"({r['found']['held']} of {r['found']['docs']} held); "
+            f"launches {r['launches']}")
+    rp = p9["replica"]
+    sched_line("9d replica scheduler, saturated", rp["summary"])
+    log(f"[9d replica] {rp['standbys']['count']} standbys, each logged "
+        f"{rp['standbys']['rows_each']} rows once; failover equal to the "
+        f"primary's rings and pointers; launches {rp['launches']}")
+    ag = p9["agentic"]
+    sq = ag["sequential"]
+    log(f"[9e agentic sequential] {AGENTIC_QUERIES} complex queries: full "
+        f"retrieval {sq['full']['retrieval_latency']:.3f} s, accuracy "
+        f"{sq['full']['accuracy']:.4f}; HaS retrieval "
+        f"{sq['has']['retrieval_latency']:.3f} s, DAR {sq['has']['dar']:.4f}"
+        f", accuracy {sq['has']['accuracy']:.4f}; retrieval-latency cut "
+        f"{sq['retrieval_cut']:+.2%}; torch replay equal in accepts, DAR "
+        f"and accuracy ({sq['replay']['id_differences']} ids differ)")
+    for key in ("sequential_hops", "pipelined"):
+        r = ag[key]
+        s = r["summary"]
+        log(f"[9e agentic scheduler, {key}] {ag['qps']:.3f} qps Poisson: "
+            f"complex e2e {s['e2e_latency']:.3f} s, retrieval "
+            f"{s['retrieval_latency']:.3f} s, DAR {s['dar']:.4f}, accuracy "
+            f"{s['accuracy']:.4f}, prespec {s['hop2_prespec_rate']:.3f} "
+            f"(hit {s['hop2_prespec_hit_rate']:.3f}), cancelled "
+            f"{r['replay']['cancelled']} of {r['requests']} requests; serve "
+            f"{r['serve_s']:.2f} s; torch replay equal")
+    for name, r in p9["cli"].items():
+        if "exit" in r:
+            log(f"[9f serve {name}] exit {r['exit']}: {r['error']}")
+        else:
+            log(f"[9f serve {name}] {r['header']}; DAR {r['dar']:.4f}, "
+                f"complex {r['complex_n']:.0f} (DAR "
+                f"{r['complex_dar']:.4f}), {r['s']:.1f} s")
+    log(f"[phase 9] {p9['phase_s']:.1f} s; launches {p9['launches']}")
+
+
 def stream_kw() -> dict:
     from repro_torch.data.synthetic import DATASETS
     ds = DATASETS["granola"]
@@ -2547,7 +3447,6 @@ def main() -> int:
               "NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.data.synthetic import SyntheticWorld, WorldConfig
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.embedding_bag import embedding_bag
@@ -2582,13 +3481,16 @@ def main() -> int:
     if tf32["cuda.matmul.allow_tf32"]:
         raise AssertionError("TF32 matmul is on; the port needs full f32")
 
-    # phase 2: build (and fused_rerank's traced variant for its probe)
+    # phase 2: build (and fused_rerank's traced variant for its probe),
+    # while the worlds are built and held to the reference's digests
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         traced = pool.submit(fr_probe.build_traced)
+        worlds = pool.submit(world_digests)
         paths = _build.build_all()
         traced = traced.result()
-    build_s = time.perf_counter() - t0
+        build_s = time.perf_counter() - t0
+        digest_info, world = worlds.result()
     log(f"kernels built in {build_s:.1f} s: "
         f"{sorted(p.name for p in paths.values())}")
     ptxas = {name: ptxas_summary(out)
@@ -2623,6 +3525,7 @@ def main() -> int:
     bag_res, bag_path = check_embedding_bag(dev, timer)
     kres.update(bag_res)
     torch.cuda.empty_cache()                      # the tables are gone
+    check_cloud_path_shapes(dev, timer, kres)
     phase3_s = time.perf_counter() - t0
     log(f"tolerance vs plain: scores within {SCORE_TOL} (f32 sums in "
         f"another order), ids equal except swaps of candidates whose "
@@ -2676,13 +3579,12 @@ def main() -> int:
         f"{BAG_BATCH} through embedding_bag_op, launches "
         f"{bag_path['launches']['embedding_bag']}")
 
-    # phases 4-5
-    t0 = time.perf_counter()
-    world = SyntheticWorld(WorldConfig(n_entities=ENTITIES, d=768))
-    world_s = time.perf_counter() - t0
+    # phases 4-5, on configuration 1's world (built in phase 2)
+    world_s = digest_info["s"]
     queries = world.sample_queries(HAS_QUERIES, **stream_kw(), seed=1)
-    log(f"world: {world.cfg.n_docs} passages, d=768, built in "
-        f"{world_s:.1f} s")
+    log(f"world: {world.cfg.n_docs} passages, d=768; both worlds and "
+        f"their digests in {world_s:.1f} s (numpy {np.__version__}), equal "
+        f"to the reference's")
     info, index, service = algorithm1_path(dev, world, queries, counters)
     hyb = hybrid_path(dev, world, queries, index, counters)
     for title, r in (("Algorithm 1", info), ("hybrid cloud stage", hyb)):
@@ -2757,8 +3659,35 @@ def main() -> int:
         f"{qs['full']['doc_hit_rate']:.4f}; HaS DAR {qs['has']['dar']:.4f}, "
         f"CAR {qs['has']['car']:.4f}, DocHit "
         f"{qs['has']['doc_hit_rate']:.4f}")
+    # the full scan is exact: on the reference's world and stream its doc
+    # hits are the CPU reference's
+    for size, hit in (("config1", info["full"]["doc_hit_rate"]),
+                      ("quickstart", qs["full"]["doc_hit_rate"])):
+        if round(hit * FULL_QUERIES) != REF_FULL_DOC_HITS[size]:
+            raise AssertionError(
+                f"{size}: full-scan DocHit {hit} on the card, the CPU "
+                f"reference's {REF_FULL_DOC_HITS[size] / FULL_QUERIES}")
+    log(f"full-scan DocHit equals the CPU reference's: configuration 1 "
+        f"{info['full']['doc_hit_rate']:.4f}, quickstart "
+        f"{qs['full']['doc_hit_rate']:.4f}")
 
-    # phase 9: the kernels line and the result line
+    # phase 9: the cloud backends, live ingest, replicas, agentic serving
+    # and the serve CLI
+    t0 = time.perf_counter()
+    p9 = {"sharded": sharded_path(dev, world, queries, service, index,
+                                  counters)}
+    p9["hybrid_sharded"] = hybrid_sharded_path(dev, world, queries, index,
+                                               counters)
+    p9["ingest"] = ingest_path(dev, world, queries, counters)
+    p9["replica"] = replica_path(dev, world, queries, service, index,
+                                 counters)
+    p9["agentic"] = agentic_path(dev, world, service, index, counters)
+    p9["cli"] = cli_path(counters)
+    p9["phase_s"] = time.perf_counter() - t0
+    p9["launches"] = phase9_launches(p9)
+    report_phase9(p9)
+
+    # phase 10: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -2777,12 +3706,20 @@ def main() -> int:
         "embedding_bag": ("embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:19", bag_path)}
     main_shape = {"decode_attention": "rag", "embedding_bag": "dlrm-rm2"}
+    for name in RETRIEVAL_KERNELS:
+        if p9["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 9's "
+                                 "paths")
     kernels = []
     for name, (src, replaces, path) in sources.items():
         t = kres[name][main_shape.get(name, "B=1")]
+        # the retrieval kernels' launches on phase 9's paths; the RAG and
+        # recsys kernels' on their own paths (phase 9 runs neither)
+        launches = p9["launches"][name] if name in RETRIEVAL_KERNELS \
+            else path["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces,
-                        "launches": path["launches"][name],
+                        "launches": launches,
                         "max_abs_err": kres[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2796,7 +3733,8 @@ def main() -> int:
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
          "main_path": info, "hybrid_path": hyb, "rag_path": rag,
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
-         "embedding_bag_path": bag_path,
+         "embedding_bag_path": bag_path, "world_digests": digest_info,
+         "phase9": p9,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

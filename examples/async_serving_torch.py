@@ -13,12 +13,13 @@ cache, and overlaps the cloud full-retrieval pipeline with ongoing edge
 speculation.  The same positional arguments and printout; it runs on the
 card unless ``--device cpu`` is given.
 
-The cloud stage is ``flat`` (one in-process exact-scan worker).  The
-reference's ``sharded`` backend (4 mesh-sharded workers) waits for the port
-of ``ShardedMeshBackend`` (ROADMAP.md queue 1 item 7).  The fuzzy index
-comes from the port's k-means, so numbers agree with the reference's
-example only when both use one index (the parity test hands the
-reference's across).
+The cloud stage is ``flat`` (one in-process exact-scan worker) or
+``sharded`` (``ShardedMeshBackend``: the corpus in 4 row shards, 4
+concurrent workers; one card runs the shards' scans one after another,
+and the virtual clock models them as parallel).  The fuzzy index comes
+from the port's k-means, so numbers agree with the reference's example
+only when both use one index (the parity test hands the reference's
+across).
 """
 import argparse
 
@@ -26,10 +27,12 @@ import numpy as np
 
 from repro_torch.core.has import HasConfig
 from repro_torch.data.synthetic import DATASETS, SyntheticWorld, WorldConfig
+from repro_torch.retrieval.service import ShardedMeshBackend
 from repro_torch.serving.engine import HasEngine, RetrievalService
 from repro_torch.serving.latency import LatencyModel
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            SchedulerConfig, poisson_arrivals)
+from repro_torch.utils import as_f32, resolve_device
 
 N_ENTITIES = 5000
 SEQ_QUERIES = 200
@@ -45,15 +48,18 @@ def run(n: int, qps: float, backend_name: str = "flat", device=None,
     ``SchedResult``), "summary", "seq", "n_full_workers"}.  ``index`` is a
     prebuilt fuzzy-channel index (None: the scheduler builds one, and the
     sequential engine shares it)."""
-    if backend_name == "sharded":
-        raise SystemExit("the sharded backend waits for the port of "
-                         "ShardedMeshBackend (ROADMAP.md queue 1 item 7); "
-                         "use flat")
-    if backend_name != "flat":
+    if backend_name not in ("flat", "sharded"):
         raise SystemExit(f"unknown backend {backend_name!r} "
                          "(choices: flat, sharded)")
     world = SyntheticWorld(WorldConfig(n_entities=n_entities, seed=0))
-    service = RetrievalService(world, LatencyModel(), k=10, device=device)
+    latency = LatencyModel()
+    backend = None                                  # default: flat, 1 worker
+    if backend_name == "sharded":
+        backend = ShardedMeshBackend(as_f32(world.doc_emb,
+                                            resolve_device(device)), 10,
+                                     latency, n_shards=4, n_workers=4)
+    service = RetrievalService(world, latency, k=10, backend=backend,
+                               device=device)
     cfg = HasConfig(**HAS_CFG)
     ds = DATASETS["granola"]
     queries = world.sample_queries(n, pattern=ds["pattern"],

@@ -19,10 +19,19 @@ mechanisms depend on:
 
 Different 'encoders' (Table VIII) = different (entity-weight, attr-weight,
 noise) triples, reproducing the encoder-robustness axis.
+
+Every draw is a numpy ``Generator`` draw, so the port builds the
+reference's world and streams byte for byte, with one exception that numpy
+itself introduced: ``Generator.zipf`` changed its rejection loop after
+numpy 2.0 (numpy 2.3 samples ``U`` from ``(Umin, 1]`` where 2.0 took
+``1 - next_double``), and the same seed gives other ranks from the second
+draw on.  :func:`zipf` is numpy 2.0's loop over the Generator's own
+uniforms, so the streams do not depend on the installed numpy.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -51,6 +60,53 @@ class WorldConfig:
 
 
 # encoder presets (Table VIII): robustness across encoder families
+_INT64_MAX = float(np.iinfo(np.int64).max)
+
+
+def zipf(rng: np.random.Generator, a: float, size: int | None = None):
+    """``rng.zipf(a, size)`` as numpy 2.0.2 draws it, on any numpy.
+
+    The rejection loop of numpy 2.0's ``random_zipf``: each attempt takes
+    two uniforms ``U = 1 - next_double``, ``V = next_double``, proposes
+    ``X = floor(U ** (-1 / (a - 1)))`` and accepts when
+    ``V X (T - 1) / (b - 1) <= T / b`` (``T = (1 + 1/X) ** (a - 1)``,
+    ``b = 2 ** (a - 1)``).  Uniforms come in blocks from ``rng.random``;
+    the state is then rewound and advanced by exactly the attempts used,
+    so the Generator ends where numpy 2.0 would leave it.  ``math.pow`` is
+    the C library's ``pow``, as in numpy's C loop.
+    """
+    if a <= 1.0:
+        raise ValueError("a must be > 1")
+    n = 1 if size is None else int(size)
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    inv = -1.0 / am1
+    out = np.empty(n, np.int64)
+    got = 0
+    while got < n:
+        state = rng.bit_generator.state
+        block = rng.random(2 * (n - got) + 64).tolist()
+        used = 0
+        for j in range(0, len(block), 2):
+            used += 2
+            v = block[j + 1]
+            try:
+                x = float(math.floor(math.pow(1.0 - block[j], inv)))
+            except OverflowError:        # X = inf: above INT64_MAX, rejected
+                continue
+            if x > _INT64_MAX or x < 1.0:
+                continue
+            t = math.pow(1.0 + 1.0 / x, am1)
+            if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+                out[got] = int(x)
+                got += 1
+                if got == n:
+                    break
+        rng.bit_generator.state = state
+        rng.random(used)
+    return int(out[0]) if size is None else out
+
+
 ENCODERS = {
     "contriever": dict(entity_weight=1.0, attr_weight_doc=0.55,
                        attr_weight_query=0.65, noise_doc=1.0, noise_query=1.1),
@@ -142,10 +198,10 @@ class SyntheticWorld:
         cfg = self.cfg
         rng = np.random.default_rng(seed)
         if pattern == "zipf":
-            ranks = rng.zipf(zipf_a, size=4 * n)
+            ranks = zipf(rng, zipf_a, size=4 * n)
             ranks = ranks[ranks <= cfg.n_entities][:n] - 1
             while len(ranks) < n:
-                extra = rng.zipf(zipf_a, size=n) - 1
+                extra = zipf(rng, zipf_a, size=n) - 1
                 ranks = np.concatenate([ranks, extra[extra < cfg.n_entities]])[:n]
             perm = rng.permutation(cfg.n_entities)
             entities = perm[ranks]

@@ -2,28 +2,28 @@
 
 One call per ``[B, d]`` batch runs
 
-    dense channel scan (flat | IVF-ANN)                -> top-kd ids
+    dense channel scan (flat | sharded | IVF-ANN)      -> top-kd ids
     lexical channel scan (hashed postings)             -> top-kl ids
     RRF fusion + near-dup diversification + rerank     -> top-k ids
 
 behind the ``backend="cuda" | "torch"`` switch of ``kernels/ops.py``: the
 IVF bucket scan goes to the ``ivf_scan`` kernel (int8 residual codes in
 compressed mode), the lexical channel to ``lexical_score`` and the fusion
-to ``fused_rerank``; the flat dense scan and the centroid product stay
-plain ``torch.matmul``, as the reference leaves them to XLA.
+to ``fused_rerank``; the flat and sharded dense scans and the centroid
+product stay plain ``torch.matmul``, as the reference leaves them to XLA.
 
 Id contract: postings row == global doc id, so the lexical channel's rows
 are already ids and the fused pool gathers rerank vectors straight from the
 corpus; ``-1`` slots gather zero vectors and are never selected.
 
-``ivf_ann_body`` is also the whole search of ``IVFBackend``.  The
-reference's ``hybrid_sharded_search`` waits for ``retrieval/distributed.py``.
+``ivf_ann_body`` is also the whole search of ``IVFBackend``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ops import fused_rerank_op, ivf_scan_op
+from repro_torch.retrieval.distributed import sharded_topk_reference
 from repro_torch.retrieval.flat import chunked_flat_search
 from repro_torch.retrieval.ivf import CompressedIVFIndex, IVFIndex
 from repro_torch.retrieval.lexical import lexical_topk
@@ -77,6 +77,19 @@ def hybrid_flat_search(corpus, doc_terms, doc_weights, queries, q_terms,
     """Hybrid stage with the exact flat scan as its dense channel."""
     queries = queries.float()
     _, i_d = chunked_flat_search(corpus, queries, kd, chunk=chunk)
+    return _fuse_tail(corpus, queries, i_d, q_terms, q_weights, doc_terms,
+                      doc_weights, k=k, kl=kl, rrf_k=rrf_k,
+                      diversify_sim=diversify_sim, backend=backend,
+                      tile_n=tile_n)
+
+
+def hybrid_sharded_search(corpus, doc_terms, doc_weights, queries, q_terms,
+                          q_weights, *, k, kd, kl, rrf_k, diversify_sim,
+                          backend, tile_n, n_shards, chunk):
+    """Hybrid stage with the row-sharded exact scan as its dense channel."""
+    queries = queries.float()
+    _, i_d = sharded_topk_reference(corpus, queries, kd, n_shards=n_shards,
+                                    chunk=chunk)
     return _fuse_tail(corpus, queries, i_d, q_terms, q_weights, doc_terms,
                       doc_weights, k=k, kl=kl, rrf_k=rrf_k,
                       diversify_sim=diversify_sim, backend=backend,

@@ -210,15 +210,16 @@ def _build_ivf_arrays(corpus, n_buckets: int, capacity_factor: float = 2.0,
 
 def index_from_arrays(cents, bucket_vecs, bucket_scales, bucket_ids, counts,
                       device) -> IVFIndex | CompressedIVFIndex:
-    """The index of :func:`_build_ivf_arrays`' arrays on ``device``."""
-    t = {"centroids": torch.as_tensor(cents, device=device),
-         "bucket_vecs": torch.as_tensor(bucket_vecs, device=device),
-         "bucket_ids": torch.as_tensor(bucket_ids, device=device),
-         "bucket_counts": torch.as_tensor(counts, device=device)}
+    """The index of :func:`_build_ivf_arrays`' arrays on ``device``: copies,
+    never views of the arrays (live ingest rewrites them in place)."""
+    t = {"centroids": torch.tensor(cents, device=device),
+         "bucket_vecs": torch.tensor(bucket_vecs, device=device),
+         "bucket_ids": torch.tensor(bucket_ids, device=device),
+         "bucket_counts": torch.tensor(counts, device=device)}
     if bucket_scales is None:
         return IVFIndex(**t)
     return CompressedIVFIndex(
-        bucket_scales=torch.as_tensor(bucket_scales, device=device), **t)
+        bucket_scales=torch.tensor(bucket_scales, device=device), **t)
 
 
 def build_ivf_streaming(corpus, n_buckets: int, capacity_factor: float = 2.0,

@@ -5,21 +5,38 @@ is pluggable: :class:`FullRetrievalBackend` is what the serving layers see.
 
 ``LocalFlatBackend``
     One in-process exact scan (``chunked_flat_search``).
+``ShardedMeshBackend``
+    The corpus split into ``n_shards`` row blocks, each scanned and the
+    candidate sets merged (``retrieval/distributed.py``); ``n_workers``
+    concurrent dispatch slots and ``LatencyModel.shard_scale``.  One card
+    has no device mesh, so ``mesh=`` raises.  Ids equal
+    ``LocalFlatBackend``'s.
 ``IVFBackend``
     ANN cloud stage: an IVF index built chunk by chunk
     (``retrieval/ivf.py``), optionally with int8 centroid-residual codes
     (``compressed=True``), searched by ``retrieval/fusion.py::
-    ivf_ann_body`` (the ``ivf_scan`` kernel on the card).  Approximate.
+    ivf_ann_body`` (the ``ivf_scan`` kernel on the card), with live ingest.
+    Approximate.
 ``HybridBackend``
-    Dense channel (``"flat"`` or ``"ann"``) + hashed-term lexical channel +
-    RRF fusion, near-duplicate diversification and dense rerank
-    (``retrieval/fusion.py``).  Term-less searches run with inert terms
-    and degrade to diversified dense retrieval.
+    Dense channel (``"flat"``, ``"sharded"`` or ``"ann"``) + hashed-term
+    lexical channel + RRF fusion, near-duplicate diversification and dense
+    rerank (``retrieval/fusion.py``), with live ingest into both channels.
+    Term-less searches run with inert terms and degrade to diversified
+    dense retrieval.
+``ReplicaBackend``
+    An inner backend behind warm standbys: every cache ingest is recorded
+    in each standby's delta log, so any of them can fail over with the
+    primary's cache.
 
 Each ``search`` records one ``core/dispatch.py`` probe, as in the
-reference.  Every backend has the reference's no-op ``on_ingest`` hook,
-which the engines call after each cache ingest.  Not ported yet: live
-ingest (``ingest_docs``), ``ReplicaBackend`` and ``ShardedMeshBackend``.
+reference.  Every backend has the reference's ``on_ingest`` hook, which
+the engines call after each cache ingest (a no-op but on
+``ReplicaBackend``).
+
+Live ingest keeps host numpy mirrors of the index canonical, as the
+reference does: ``ingest_docs`` rewrites them in place and the next
+``search`` uploads copies (``_dirty``).  The device tensors never alias
+the mirrors.
 
 Latency protocol: ``latency(batch)`` returns the *modeled* service time of
 one coalesced dispatch; ``n_workers`` is how many such dispatches a virtual
@@ -28,17 +45,22 @@ clock may overlap.
 from __future__ import annotations
 
 import time
-from typing import Protocol, runtime_checkable
+from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
 
 from repro_torch.core import dispatch
 from repro_torch.kernels.ops import check_backend
+from repro_torch.retrieval.distributed import sharded_topk_reference
 from repro_torch.retrieval.flat import chunked_flat_search
 from repro_torch.retrieval.fusion import (hybrid_ann_search,
-                                          hybrid_flat_search, ivf_ann_body)
-from repro_torch.retrieval.ivf import _build_ivf_arrays, index_from_arrays
+                                          hybrid_flat_search,
+                                          hybrid_sharded_search, ivf_ann_body)
+from repro_torch.retrieval.ivf import (_assign, _build_ivf_arrays,
+                                       _quant_residual_halves,
+                                       index_from_arrays)
+from repro_torch.serving.replication import gather_doc_vecs
 from repro_torch.utils import as_f32, as_i32, resolve_device, synchronize
 
 
@@ -100,17 +122,54 @@ class LocalFlatBackend(_BackendBase):
         return self.lat.full_scan_time()
 
 
+class ShardedMeshBackend(_BackendBase):
+    """Row-sharded exact scan with a concurrent-dispatch worker pool.
+
+    The reference's no-mesh path: ``sharded_topk_reference`` models an
+    ``n_shards``-way deployment on one device, and the virtual clock sees
+    ``n_workers`` dispatch slots and ``LatencyModel.shard_scale``.  The
+    reference's ``mesh=`` lowers onto a JAX device mesh; one card has
+    none, so a mesh raises (``retrieval/distributed.py``).
+    """
+
+    def __init__(self, corpus: torch.Tensor, k: int, lat, n_shards: int = 4,
+                 n_workers: int = 1, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ShardedMeshBackend(mesh=...) needs a multi-device mesh; "
+                "one card runs the no-mesh path (mesh=None)")
+        self.corpus = corpus
+        self.k = k
+        self.lat = lat
+        self.n_shards = max(1, int(n_shards))
+        self.n_workers = max(1, int(n_workers))
+
+    def search(self, q_embs):
+        return sharded_topk_reference(self.corpus, q_embs, self.k,
+                                      n_shards=self.n_shards)
+
+    def latency(self, batch: int) -> float:
+        # every shard streams N/n_shards rows concurrently + merge overhead
+        return self.lat.full_scan_time() * self.lat.shard_scale(self.n_shards)
+
+
 class IVFBackend(_BackendBase):
-    """ANN cloud stage: IVF index + bucket scan + exact residual buffer.
+    """ANN cloud stage: IVF index + bucket scan + exact residual buffer,
+    with live ingest.
 
     The index is built by streaming the corpus through k-means assignment
-    in ``build_chunk``-row slices (``centroids=`` skips k-means);
-    ``compressed=True`` stores int8 centroid-residual codes with two
-    per-half scales, and the centroid term of every score reuses the probe
-    product.  The residual buffer (``residual_cap`` rows) is where live
-    ingest would spill; ingest is not ported, so it stays empty but is
-    still scanned and merged as in the reference.  ``backend`` is the kernel
-    switch (None: by device).  Results are approximate.
+    in ``build_chunk``-row slices; ``compressed=True`` stores int8
+    centroid-residual codes with two per-half scales, and the centroid
+    term of every score reuses the probe product.  ``centroids=`` skips
+    k-means, at the first build and at every rebuild.  ``backend`` is the
+    kernel switch (None: by device).  Results are approximate.
+
+    Live ingest (``ingest_docs``) assigns each new doc to its nearest
+    centroid; a full bucket spills into the exact-scanned residual buffer
+    (``residual_cap`` rows), and a doc that finds the residual full
+    triggers a rebuild over the grown host corpus (``_rebucket``), which
+    places it and every doc after it.  The host numpy arrays are
+    canonical; the next ``search`` uploads copies of them.
     """
 
     def __init__(self, corpus, k: int, lat, n_clusters: int = 1024,
@@ -129,19 +188,49 @@ class IVFBackend(_BackendBase):
         self.compressed = bool(compressed)
         self.backend = check_backend(backend)
         self.n_workers = max(1, int(n_workers))
-        d = self.corpus.shape[1]
-        self._res_vecs = torch.zeros((max(1, int(residual_cap)), d),
-                                     device=self.device)
-        self._res_ids = torch.full((self._res_vecs.shape[0],), -1,
-                                   dtype=torch.int32, device=self.device)
+        self.seed = int(seed)
+        self.residual_cap = max(1, int(residual_cap))
+        self.build_chunk = int(build_chunk)
+        self.kmeans_iters = int(kmeans_iters)
+        if isinstance(centroids, torch.Tensor):
+            centroids = centroids.cpu()
+        self.centroids = (None if centroids is None
+                          else np.array(centroids, np.float32))
+        self._corpus_np = self.corpus.cpu().numpy().copy()
+        self._ids_np = np.arange(self._corpus_np.shape[0], dtype=np.int32)
+        self._next_id = int(self._corpus_np.shape[0])
+        self._ingest_seen: dict = {}
+        self.rebuilds = 0
+        self._res_vecs_np = np.zeros(
+            (self.residual_cap, self._corpus_np.shape[1]), np.float32)
+        self._res_ids_np = np.full(self.residual_cap, -1, np.int32)
         self._res_count = 0
-        self.index = index_from_arrays(*_build_ivf_arrays(
-            self.corpus, self.n_clusters, self.capacity_factor,
-            kmeans_iters, seed, build_chunk, self.compressed,
-            centroids=centroids, device=self.device), device=self.device)
+        self._build()
 
+    # -- index build / upload -------------------------------------------
+    def _build(self) -> None:
+        (self._cents_np, self._bvecs_np, self._bscales_np, self._bids_np,
+         self._counts_np) = _build_ivf_arrays(
+            self._corpus_np, self.n_clusters, self.capacity_factor,
+            self.kmeans_iters, self.seed, self.build_chunk, self.compressed,
+            ids=self._ids_np, centroids=self.centroids, device=self.device)
+        self._dirty = True
+        self._upload()
+
+    def _upload(self) -> None:
+        """Device copies of the host arrays (never views of them)."""
+        self.index = index_from_arrays(
+            self._cents_np, self._bvecs_np, self._bscales_np, self._bids_np,
+            self._counts_np, device=self.device)
+        self._res_vecs = torch.tensor(self._res_vecs_np, device=self.device)
+        self._res_ids = torch.tensor(self._res_ids_np, device=self.device)
+        self._dirty = False
+
+    # -- FullRetrievalBackend protocol ----------------------------------
     def search(self, q_embs):
         dispatch.record("ivf_backend_search")
+        if self._dirty:
+            self._upload()
         return ivf_ann_body(self.index, self._res_vecs, self._res_ids,
                             as_f32(q_embs, self.device), nprobe=self.nprobe,
                             k=self.k, backend=self.backend)
@@ -157,21 +246,93 @@ class IVFBackend(_BackendBase):
             bytes_per_dim=1 if self.compressed else 4,
             residual_rows=self._res_count)
 
+    # -- live-ingest reconciliation -------------------------------------
+    @property
+    def residual_count(self) -> int:
+        return self._res_count
+
+    def _rebucket(self) -> None:
+        """Flush: rebuild the whole index (incl. residual docs, which are
+        already rows of the host corpus) and empty the residual buffer."""
+        self._build()
+        self._res_vecs_np[:] = 0.0
+        self._res_ids_np[:] = -1
+        self._res_count = 0
+        self.rebuilds += 1
+        self._dirty = True
+
+    def ingest_docs(self, vecs, ids=None, *, ingest_key=None) -> np.ndarray:
+        """Reconcile live-ingested docs: nearest-centroid assignment with
+        bounded bucket spill into the residual buffer; residual overflow
+        triggers a rebuild.  Idempotent on ``ingest_key``.  Returns the
+        global ids assigned to the new docs."""
+        if ingest_key is not None and ingest_key in self._ingest_seen:
+            return self._ingest_seen[ingest_key]
+        vecs = np.asarray(vecs, np.float32)
+        if vecs.ndim == 1:
+            vecs = vecs[None]
+        n_new = vecs.shape[0]
+        if ids is None:
+            ids = self._next_id + np.arange(n_new, dtype=np.int32)
+        ids = np.asarray(ids, np.int32)
+        self._next_id = max(self._next_id, int(ids.max(initial=-1)) + 1)
+        # the host corpus grows first: a rebuild reads it, so every doc
+        # (placed or not) survives the flush
+        self._corpus_np = np.concatenate([self._corpus_np, vecs])
+        self._ids_np = np.concatenate([self._ids_np, ids])
+        v = torch.as_tensor(vecs, device=self.device)
+        cents = torch.as_tensor(self._cents_np, device=self.device)
+        assign_t = _assign(v, cents)
+        assign = assign_t.cpu().numpy()
+        if self.compressed:
+            q_all, s_all = _quant_residual_halves(v, cents[assign_t])
+            q_all = q_all.cpu().numpy()
+            s_all = s_all.cpu().numpy()
+        cap = self._bids_np.shape[1]
+        for i in range(n_new):
+            b = int(assign[i])
+            c = int(self._counts_np[b])
+            if c < cap:
+                self._bids_np[b, c] = ids[i]
+                if self.compressed:
+                    self._bvecs_np[b, c] = q_all[i]
+                    self._bscales_np[b, c] = s_all[i]
+                else:
+                    self._bvecs_np[b, c] = vecs[i]
+                self._counts_np[b] = c + 1
+            elif self._res_count < self.residual_cap:
+                self._res_vecs_np[self._res_count] = vecs[i]
+                self._res_ids_np[self._res_count] = ids[i]
+                self._res_count += 1
+            else:
+                # overflow: the rebuild already covers every remaining doc
+                self._rebucket()
+                break
+        self._dirty = True
+        if ingest_key is not None:
+            self._ingest_seen[ingest_key] = ids
+        return ids
+
 
 class HybridBackend(_BackendBase):
     """Hybrid lexical+dense cloud stage with fused reranking.
 
-    Composes a dense channel (``dense="flat" | "ann"``; the reference's
-    ``"sharded"`` waits for ``retrieval/distributed.py``) with the
-    hashed-term lexical channel: channel scans -> rank-domain RRF
+    Composes a dense channel (``dense="flat" | "sharded" | "ann"``) with
+    the hashed-term lexical channel: channel scans -> rank-domain RRF
     (``1/(rrf_k + rank)``, cross-channel duplicate mass combined onto the
     first occurrence) -> greedy near-duplicate diversification (cosine >=
     ``diversify_sim`` against an already-kept doc drops it; ``None``
     disables) -> dense rerank.  ``ann_kwargs`` go to the inner
-    :class:`IVFBackend`.  Postings row == global doc id.
+    :class:`IVFBackend`; ``n_shards`` splits the ``"sharded"`` scan.
 
     Searches without term arrays run with an all-invalid term batch of
     width ``q_term_width``: the lexical channel contributes nothing.
+
+    Id contract: postings row == global doc id, so ``ingest_docs`` rejects
+    non-sequential ids; both channels grow in lockstep (dense vectors via
+    the inner ``IVFBackend`` in ANN mode, a corpus append otherwise;
+    postings rows always appended here, ``-1`` rows for a doc without
+    terms).
     """
 
     uses_lexical = True
@@ -182,20 +343,20 @@ class HybridBackend(_BackendBase):
                  diversify_sim: float | None = 0.98,
                  lexical_terms: int | None = None,
                  backend: str | None = None, chunk: int = 32768,
-                 n_workers: int = 1, tile_n: int = 512, q_term_width: int = 2,
-                 ann_kwargs: dict | None = None, device=None):
-        if dense not in ("flat", "ann"):
-            raise ValueError(f"unknown hybrid dense mode: {dense!r} "
-                             f"(the port has 'flat' and 'ann')")
+                 n_shards: int = 4, n_workers: int = 1, tile_n: int = 512,
+                 q_term_width: int = 2, ann_kwargs: dict | None = None,
+                 device=None):
+        if dense not in ("flat", "sharded", "ann"):
+            raise ValueError(f"unknown hybrid dense mode: {dense!r}")
         if rrf_k < 1:
             raise ValueError("rrf_k must be >= 1")
         if diversify_sim is not None and not 0.0 < diversify_sim <= 1.0:
             raise ValueError("diversify_sim must be in (0, 1]")
         self.device = resolve_device(device)
-        self.corpus = as_f32(corpus, self.device)
+        corpus = as_f32(corpus, self.device)
         terms = np.asarray(doc_terms, np.int32)
         tw = np.asarray(doc_term_weights, np.float32)
-        if terms.shape != tw.shape or terms.shape[0] != self.corpus.shape[0]:
+        if terms.shape != tw.shape or terms.shape[0] != corpus.shape[0]:
             raise ValueError("postings arrays must be [n_docs, L] and match "
                              "the corpus row count")
         if lexical_terms is not None:
@@ -213,15 +374,33 @@ class HybridBackend(_BackendBase):
         self.tile_n = int(tile_n)
         self.q_term_width = max(1, int(q_term_width))
         self.n_workers = max(1, int(n_workers))
-        self.chunk = min(chunk, max(1, self.corpus.shape[0]))
+        self.n_shards = max(1, int(n_shards))
+        self.chunk = min(chunk, max(1, corpus.shape[0]))
         self.lexical_terms = terms.shape[1]
-        self._terms = as_i32(terms, self.device)
-        self._tw = as_f32(tw, self.device)
+        self._terms_np = np.ascontiguousarray(terms)
+        self._tw_np = np.ascontiguousarray(tw)
+        self.corpus = corpus
+        self._terms = torch.tensor(self._terms_np, device=self.device)
+        self._tw = torch.tensor(self._tw_np, device=self.device)
         self._ivf = None
         if dense == "ann":
             kw = dict(backend=self.backend, device=self.device)
             kw.update(ann_kwargs or {})
             self._ivf = IVFBackend(self.corpus, self.dense_k, lat, **kw)
+            self._corpus_np = self._ivf._corpus_np
+        else:
+            self._corpus_np = corpus.cpu().numpy().copy()
+        self._ingest_seen: dict = {}
+        self._dirty = False
+
+    def _upload(self) -> None:
+        """Device copies of the grown host arrays."""
+        if self._ivf is not None and self._ivf._dirty:
+            self._ivf._upload()
+        self.corpus = torch.tensor(self._corpus_np, device=self.device)
+        self._terms = torch.tensor(self._terms_np, device=self.device)
+        self._tw = torch.tensor(self._tw_np, device=self.device)
+        self._dirty = False
 
     def search(self, q_embs, q_terms=None, q_term_weights=None):
         dispatch.record("hybrid_backend_search")
@@ -238,6 +417,8 @@ class HybridBackend(_BackendBase):
             if q_term_weights is None:
                 q_term_weights = (q_terms >= 0).to(torch.float32)
             q_term_weights = as_f32(q_term_weights, self.device)
+        if self._dirty or (self._ivf is not None and self._ivf._dirty):
+            self._upload()
         common = dict(k=self.k, kd=self.dense_k, kl=self.lexical_k,
                       rrf_k=self.rrf_k, diversify_sim=self.diversify_sim,
                       backend=self.backend, tile_n=self.tile_n)
@@ -245,15 +426,139 @@ class HybridBackend(_BackendBase):
             return hybrid_flat_search(self.corpus, self._terms, self._tw, q,
                                       q_terms, q_term_weights,
                                       chunk=self.chunk, **common)
+        if self.dense == "sharded":
+            return hybrid_sharded_search(self.corpus, self._terms, self._tw,
+                                         q, q_terms, q_term_weights,
+                                         n_shards=self.n_shards,
+                                         chunk=self.chunk, **common)
         return hybrid_ann_search(self._ivf.index, self._ivf._res_vecs,
                                  self._ivf._res_ids, self.corpus, self._terms,
                                  self._tw, q, q_terms, q_term_weights,
                                  nprobe=self._ivf.nprobe, **common)
 
+    def _dense_scale(self) -> float:
+        if self.dense == "flat":
+            return 1.0
+        if self.dense == "sharded":
+            return self.lat.shard_scale(self.n_shards)
+        return self._ivf.dense_scale()
+
     def latency(self, batch: int) -> float:
-        dense = 1.0 if self._ivf is None else self._ivf.dense_scale()
         return self.lat.full_scan_time() * self.lat.hybrid_scale(
-            dense, self.lexical_terms, self.dense_k + self.lexical_k)
+            self._dense_scale(), self.lexical_terms,
+            self.dense_k + self.lexical_k)
+
+    # -- live-corpus ingest (both channels in lockstep) ------------------
+    def ingest_docs(self, vecs, ids=None, *, terms=None, term_weights=None,
+                    ingest_key=None) -> np.ndarray:
+        if ingest_key is not None and ingest_key in self._ingest_seen:
+            return self._ingest_seen[ingest_key]
+        vecs = np.asarray(vecs, np.float32)
+        if vecs.ndim == 1:
+            vecs = vecs[None]
+        n_new = vecs.shape[0]
+        start = self._corpus_np.shape[0]
+        want = (start + np.arange(n_new)).astype(np.int32)
+        if ids is not None and not np.array_equal(
+                np.asarray(ids, np.int32), want):
+            raise ValueError(
+                "HybridBackend requires sequential doc ids (postings row == "
+                f"global id): expected {start}..{start + n_new - 1}")
+        t_rows = np.full((n_new, self.lexical_terms), -1, np.int32)
+        w_rows = np.zeros((n_new, self.lexical_terms), np.float32)
+        if terms is not None:
+            terms = np.asarray(terms, np.int32)
+            if terms.ndim == 1:
+                terms = terms[None]
+            if term_weights is None:
+                tw = np.where(terms >= 0, 1.0, 0.0).astype(np.float32)
+            else:
+                tw = np.asarray(term_weights, np.float32)
+                if tw.ndim == 1:
+                    tw = tw[None]
+            m = min(self.lexical_terms, terms.shape[1])
+            t_rows[:, :m] = terms[:, :m]
+            w_rows[:, :m] = np.where(terms[:, :m] >= 0, tw[:, :m], 0.0)
+        if self._ivf is not None:
+            got = np.asarray(
+                self._ivf.ingest_docs(vecs, want, ingest_key=ingest_key),
+                np.int32)
+            self._corpus_np = self._ivf._corpus_np
+        else:
+            got = want
+            self._corpus_np = np.concatenate([self._corpus_np, vecs])
+        self._terms_np = np.concatenate([self._terms_np, t_rows])
+        self._tw_np = np.concatenate([self._tw_np, w_rows])
+        self._dirty = True
+        if ingest_key is not None:
+            self._ingest_seen[ingest_key] = got
+        return got
+
+
+class ReplicaBackend(_BackendBase):
+    """Warm-standby replica routing + cache-ingest reconciliation.
+
+    Wraps an inner backend for the scan and models one concurrent dispatch
+    slot per standby.  ``on_ingest`` mirrors every row the serving loop
+    folds into the authoritative cache onto each member's delta log via
+    the ``record_batch`` sink protocol (``serving/replication.py``):
+    members are cloud ``WarmStandby`` replicas and/or an edge
+    ``EdgeReplicaPool``.  A standby failover then resumes with exactly the
+    cache the primary had.
+
+    Padded (``-1``) doc ids, which the sharded scans emit when the corpus
+    holds fewer than k rows, gather zero vectors into the delta logs
+    (``gather_doc_vecs``).
+    """
+
+    def __init__(self, inner: FullRetrievalBackend, standbys: Sequence,
+                 corpus):
+        self.inner = inner
+        self.standbys = list(standbys)
+        self.corpus = corpus
+        self._corpus_np = np.array(torch.as_tensor(corpus).cpu(),
+                                   np.float32)  # one host copy, reused
+        self.n_workers = max(1, len(self.standbys))
+
+    def search(self, q_embs, **kw):
+        # kwargs pass through (a HybridBackend inner's q_terms, ...)
+        return self.inner.search(q_embs, **kw)
+
+    @property
+    def uses_lexical(self) -> bool:
+        return bool(getattr(self.inner, "uses_lexical", False))
+
+    @property
+    def q_term_width(self) -> int:
+        return int(getattr(self.inner, "q_term_width", 0))
+
+    def latency(self, batch: int) -> float:
+        return self.inner.latency(batch)
+
+    def on_ingest(self, q_embs, full_ids, state, tenant_ids=None, *,
+                  ingest_key=None) -> None:
+        q_embs = np.asarray(q_embs, np.float32)
+        full_ids = np.asarray(full_ids, np.int32)
+        vecs = gather_doc_vecs(self._corpus_np, full_ids)  # [N, k, d]
+        for sb in self.standbys:
+            sb.record_batch(q_embs, full_ids, vecs, state,
+                            tenant_ids=tenant_ids, ingest_key=ingest_key)
+
+    def ingest_docs(self, vecs, ids=None, *, ingest_key=None, **kw):
+        """Live-corpus ingest passthrough (an ``IVFBackend`` or
+        ``HybridBackend`` inner): the inner index reconciles, and this
+        wrapper takes its grown host corpus so later ``on_ingest`` gathers
+        see the new rows.  Extra kwargs (the hybrid backend's ``terms`` /
+        ``term_weights``) pass through."""
+        inner_ingest = getattr(self.inner, "ingest_docs", None)
+        if inner_ingest is None:
+            raise AttributeError(
+                f"{type(self.inner).__name__} has no ingest_docs")
+        out = inner_ingest(vecs, ids, ingest_key=ingest_key, **kw)
+        inner_np = getattr(self.inner, "_corpus_np", None)
+        if inner_np is not None:
+            self._corpus_np = inner_np
+        return out
 
 
 class RetrievalService:

@@ -151,11 +151,6 @@ hop re-enqueues.  ``SchedResult.complex_records`` / ``summary()`` /
 pre-speculation hit rates.  A trace with no ``hop_plan`` queries takes
 none of these paths: zero extra rng draws, heap events and span charges.
 
-The port carries the hop-graph branches over as code, but
-``serving/agentic.py`` (which builds the ``hop_plan`` continuations) is not
-ported yet (ROADMAP.md queue 1 item 8): ``serve`` raises
-``NotImplementedError`` for a query carrying a ``hop_plan``.
-
 Device touch points of the port: speculation (``speculate_batch``), the
 sharing election (``intra_batch_share``: the ``homology_score`` kernel,
 then the serial scan on the host), the late re-validation (one
@@ -535,8 +530,7 @@ class _Request:
 
 class _HopGraph:
     """Serve-time state of ONE complex query's hop chain (the scheduler
-    side of a ``HopPlan`` continuation of the reference's
-    ``serving/agentic.py``; not ported yet).
+    side of a ``serving/agentic.py::HopPlan`` continuation).
 
     Tracks the authoritative per-hop results (accepts/hits), the one
     in-flight speculative next-hop child (if cross-hop pre-speculation
@@ -905,11 +899,6 @@ class ContinuousBatchingScheduler:
             arrivals = np.zeros(n)
         arrivals = np.asarray(arrivals, np.float64)
         assert arrivals.shape == (n,)
-        if any(q.get("hop_plan") is not None for q in queries):
-            raise NotImplementedError(
-                "hop_plan queries (agentic multi-hop serving) need the "
-                "port of serving/agentic.py, ROADMAP.md queue 1 item 8; "
-                "the hop-graph branches below stay unreached until then")
         # tenant resolution: explicit array wins, else the queries' own
         # "tenant" tags, else everyone in partition 0
         if tenant_ids is None:

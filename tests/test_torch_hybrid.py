@@ -254,7 +254,7 @@ def test_hybrid_latency_model_and_knob_validation():
                         pw.doc_term_weights, lexical_terms=1, device="cpu")
     assert hb1.latency(1) < hb.latency(1) and hb1.lexical_terms == 1
     bad = [dict(rrf_k=0.5), dict(diversify_sim=1.5), dict(diversify_sim=0.0),
-           dict(dense="faiss"), dict(dense="sharded"), dict(backend="xla")]
+           dict(dense="faiss"), dict(backend="xla")]
     for kw in bad:
         with pytest.raises(ValueError):
             HybridBackend(pw.doc_emb, 10, lat, pw.doc_terms,
@@ -262,6 +262,11 @@ def test_hybrid_latency_model_and_knob_validation():
     with pytest.raises(ValueError):
         HybridBackend(pw.doc_emb, 10, lat, pw.doc_terms[:10],
                       pw.doc_term_weights[:10], device="cpu")
+    # the sharded dense channel: the shard scan's modelled speed-up
+    hs = HybridBackend(pw.doc_emb, 10, lat, pw.doc_terms,
+                       pw.doc_term_weights, dense="sharded", n_shards=4,
+                       device="cpu")
+    assert hs.n_shards == 4 and hs.latency(1) < hb.latency(1)
 
 
 def test_service_forwards_terms_only_to_lexical_backends():

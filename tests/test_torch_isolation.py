@@ -28,7 +28,8 @@ from repro_torch.serving.rag import serve_rag
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-       ROOT / "examples" / "async_serving_torch.py"]
+       ROOT / "examples" / "async_serving_torch.py",
+       ROOT / "examples" / "agentic_multihop_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -125,6 +126,45 @@ def test_scheduler_slice_entry_points_refuse_cpu_fallback(monkeypatch,
     assert EdgeReplicaPool(cfg, 2, device="cpu").states[1].q_ptr.device \
         .type == "cpu"
     assert restore(mgr, cfg, device="cpu") is None
+
+
+def test_cloud_backend_and_agentic_entry_points_refuse_cpu_fallback(
+        monkeypatch):
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.retrieval.service import HybridBackend, IVFBackend
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    world = SyntheticWorld(WorldConfig(n_entities=40, d=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IVFBackend(world.doc_emb, 4, LatencyModel(), n_clusters=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridBackend(world.doc_emb, 4, LatencyModel(), world.doc_terms,
+                      world.doc_term_weights, dense="sharded")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--queries", "4", "--entities", "40"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--queries", "4", "--entities", "40", "--engine",
+                    "sched", "--agentic-frac", "0.5"])
+    for name, call in (
+            ("agentic_multihop_torch", lambda m: m.run(2, n_entities=40)),
+            ("async_serving_torch",
+             lambda m: m.run(4, 10.0, "sharded", n_entities=40))):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(mod)
+    # asked for explicitly, the CPU works
+    be = IVFBackend(world.doc_emb, 4, LatencyModel(), n_clusters=4,
+                    device="cpu")
+    be.ingest_docs(np.ones((1, 8), np.float32))
+    assert be.index.bucket_ids.device.type == "cpu"
+    assert len(serve.main(["--queries", "4", "--entities", "40",
+                           "--device", "cpu"]).accepts) == 4
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

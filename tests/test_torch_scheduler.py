@@ -6,7 +6,8 @@ same config; channels, accepts, served ids, ``leader_idx``, every request's
 spans and ``t_done``, the counters, ``summary()``, ``per_tenant()`` and the
 final rings must be EXACTLY equal (the clock is modelled: equal ids and
 accept bits leave nothing to differ).  Also: the reference's ``ValueError``s
-for bad configs, and the port's guard on ``hop_plan`` queries.
+for bad configs, a stream that carries ``hop_plan`` queries (agentic
+hop graphs), and the async serving twin over both cloud backends.
 
 The reference's own ``test_scheduler.py::test_dar_parity_vs_batched`` is a
 property of the reference that does not hold there; the port is held to the
@@ -15,6 +16,7 @@ reference's numbers, not to that property.
 import importlib.util
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -165,13 +167,31 @@ def test_fault_plan_type_and_serve_errors_match_reference(env):
                  ValueError)
 
 
-def test_hop_plan_queries_raise_not_implemented(env):
-    _, pt = make_pair(env, ref_index=env.index)
-    queries = [dict(env.queries[0], hop_plan=object())] + env.queries[1:4]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pt.serve(queries)
-    # a plain stream on the same scheduler is unaffected
-    assert len(pt.serve(env.queries[:4]).channels) == 4
+@pytest.mark.parametrize("speculate", [True, False])
+def test_hop_plan_stream_matches_reference(env, speculate):
+    """A stream whose every fourth query is the hop-1 sub-query of a
+    two-hop chain (``serving/agentic.py``): equal to the reference's in
+    channels, spans, ``t_done``, hop identity and complex records."""
+    from repro.serving import agentic as ref_ag
+    from repro_torch.serving import agentic as pt_ag
+    ref, pt = make_pair(env, dict(speculate_hops=speculate),
+                        ref_index=env.index)
+    cqs = ref_ag.TwoHopDataset(env.ref_service.world, seed=0).sample(
+        50, seed=2)
+    rq, pq = list(env.queries[:200]), list(env.queries[:200])
+    hops = zip(ref_ag.build_hop_trace(
+        ref_ag.TwoHopDataset(env.ref_service.world, seed=0), cqs),
+        pt_ag.build_hop_trace(
+            pt_ag.TwoHopDataset(env.pt_service.world, seed=0), cqs))
+    for i, (a, b) in zip(range(0, 200, 4), hops):
+        rq[i], pq[i] = a, b
+    arr = poisson_arrivals(200, qps=20.0, seed=7)
+    r, p = serve_pair(ref, pt, rq, arr, seed=3)
+    for f in ("hop", "speculative"):
+        np.testing.assert_array_equal(getattr(r, f), getattr(p, f))
+    np.testing.assert_equal(r.complex_records, p.complex_records)
+    assert p.summary()["complex_n"] == 50
+    assert p.trace.spans["reason"].sum() > 0
 
 
 def test_max_inflight_full_is_deprecated_and_sizes_the_pool(env):
@@ -216,7 +236,20 @@ def test_async_serving_twin_matches_reference():
                    index=port_index(ref.index))
     assert_same_result(want, got["sched"])
     assert got["n_full_workers"] == 1 and 0 < got["seq"]["dar"] < 1
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        twin.run(n, qps, "sharded", device="cpu")
+    # the sharded backend: 4 row shards, 4 workers, as the reference's
+    # example builds it
+    from repro.retrieval.service import ShardedMeshBackend as RefSharded
+    lat = RefLatency()
+    ref = ref_sched_mod.ContinuousBatchingScheduler(
+        RefService(world, lat, k=10, backend=RefSharded(
+            jnp.asarray(world.doc_emb), 10, lat, n_shards=4, n_workers=4)),
+        RefCfg(**twin.HAS_CFG),
+        ref_sched_mod.SchedulerConfig(**twin.SCHED_CFG))
+    want = ref.serve(queries, poisson_arrivals(n, qps=qps, seed=7), seed=0)
+    got = twin.run(n, qps, "sharded", device="cpu", n_entities=n_entities,
+                   index=port_index(ref.index))
+    assert_same_result(want, got["sched"])
+    assert got["n_full_workers"] == 4
+    assert got["summary"]["max_inflight_full_batches"] > 1
     with pytest.raises(SystemExit, match="unknown backend"):
         twin.run(n, qps, "mesh", device="cpu")
