@@ -29,7 +29,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    smaller than k, all-pad pools, clamped probes, a tie between two probes, d=770, 200 calls back to back and
    two streams, one launch per call; decode attention at the RAG shape
    for chatglm3-6b's G=16 and the G=4 and G=9 of the other dense configs,
-   decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
+   the MoE configs' G=6 (dbrx-132b) and G=7 (arctic-480b) at Hkv=8 (each
+   timed), decode_32k and long_500k; the EmbeddingBag at the deepfm and dlrm-rm2
    Criteo tables, B=512 (int32 and int64 ids, bf16 tables of even and odd
    d; one launch a call, and each call's host and device time beside
    F.embedding_bag's); lexical_score at B=1, 64, 65 and 200 (two
@@ -76,6 +77,18 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    launch exactly 28 x 64 x 8 times (layers x steps x batches); then one batch's decode window under
    the profiler, and that batch replayed with each backend, its greedy
    tokens equal except at proven near-ties of the logits;
+6b. the MoE generators at full width, random bf16 weights, behind a fresh
+   ``HasEngine`` on the same world and index: dbrx-132b with 4 of its 40
+   layers, then (dbrx freed) arctic-480b with 2 of its 35, each through
+   ``serve_rag`` over 16 requests (batch 8, prompt 2048, 64 greedy steps);
+   ``decode_attention`` must launch exactly layers x 64 x 2 times and the
+   retrieval kernels > 0; one batch's decode window and one prefill
+   profiled; the routing of every decode step recorded (dropped (token,
+   slot) pairs, zeroed slot-0 tokens, capacity); layer 0 of decode step 0
+   held against a plain f32 loop over each token's routed experts
+   (``MOE_TOL``); the batch replayed with ``backend="torch"`` fed the
+   kernel run's tokens, rows compared while their routing agrees (logit
+   and routing near-ties proven); init time and peak memory;
 7. the micro-batched engine (``BatchedHasEngine``, ``batch_size=32``) on
    phase 4's world, index and 1500 queries, then with 4 tenants on
    ``sweep_tenants``' stream (entity % 4 == t, 400 queries per tenant,
@@ -89,7 +102,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    fresh micro-batches; ``ANNSEngine`` ("ivf", "scann": 4096 buckets,
    nprobe 64; the "ivf" ids of 300 queries against the plain scan's) and
    ``HasEngine(fallback=ANNSEngine("ivf"))`` on 400 queries;
-   ``examples/quickstart_torch.py`` at its own size;
+   ``examples/quickstart_torch.py`` and ``examples/rag_serving_torch.py``
+   at their own sizes;
 8. the continuous-batching scheduler (``examples/async_serving.py``'s
    path, ``SchedulerConfig(max_spec_batch=32, full_batch=16,
    full_max_wait_s=0.05)``) on phase 4's world, index and 1500 queries:
@@ -128,7 +142,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    torch; (f) ``repro_torch.launch.serve.main`` with the scheduler and 25%
    agentic traffic for each cloud backend, and two flag sets that exit 2;
 10. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
-   recsys kernels' on their own), then the result line
+   recsys kernels' on their own: ``decode_attention`` phases 6 and 6b),
+   then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -232,6 +247,22 @@ RAG_REQUESTS, RAG_BATCH, RAG_PROMPT, RAG_GEN = 64, 8, 2048, 64
 # logits, |logit| < 8: up to 8 ulps of 2^-5), and where the greedy tokens
 # part, both runs' logits of the two tokens lie within it
 LOGIT_TOL = 0.25
+# phase 6b: the MoE generators at full width, depth cut to fit 80 GB
+# (layers kept of 40 and 35; 263 and 954 GB of bf16 weights uncut)
+MOE_ARCHS = {"dbrx-132b": 4, "arctic-480b": 2}
+MOE_REQUESTS = 16              # two batches of RAG_BATCH
+MOE_GROUPS = {"G=6 (dbrx-132b: 48/8)": 48, "G=7 (arctic-480b: 56/8)": 56}
+# the bf16 MoE layer against a plain f32 loop over each token's routed
+# experts: 4 bf16 ulps at |out| in [2, 4); the layer rounds h, the
+# products and each add to bf16 (this script measured 0.0091 and 0.0092
+# on an H100 80GB HBM3 at 700 W, |out| up to 1.6)
+MOE_TOL = 0.0625
+# kernel vs plain replay: where a token's routed experts differ, the
+# swapped experts' f32 router logits lie within this in both runs (4x the
+# largest router-logit difference between the runs on rows whose routing
+# agreed: 0.031, dbrx-132b, 4 layers, H100 80GB HBM3 at 700 W)
+ROUTER_TOL = 0.125
+RAG_TWIN_REQUESTS = 200        # examples/rag_serving_torch.py's default
 
 
 def log(*a):
@@ -1288,7 +1319,8 @@ def check_decode_attention(dev, timer) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
     def timing(q, k, v, clen):
-        b, s = k.shape[:2]
+        b, s, hkv = k.shape[:3]
+        h = q.shape[1]
         n = clen + 1
         elem = k.element_size()
         n_bytes = q.numel() * elem + 2 * b * n * hkv * d * elem + b * h * d * 4
@@ -1326,6 +1358,13 @@ def check_decode_attention(dev, timer) -> dict:
         q, k, v = inputs(RAG_BATCH, s_rag, heads=kvh, q_heads=qh)
         case(f"RAG {name} cache_len={s_rag - 1}", q, k, v, s_rag - 1)
         case(f"RAG {name} cache_len={RAG_PROMPT}", q, k, v, RAG_PROMPT)
+    # the MoE configs' groups at the same shape (phase 6b); both take the
+    # MMA path, whose tile pads G to 16 rows
+    for key, qh in MOE_GROUPS.items():
+        q, k, v = inputs(RAG_BATCH, s_rag, heads=8, q_heads=qh)
+        for clen in (RAG_PROMPT, s_rag - 1):
+            case(f"RAG {key} cache_len={clen}", q, k, v, clen)
+        rec[key] = timing(q, k, v, s_rag - 1)
     for name, b, s in (("decode_32k", 128, 32768), ("long_500k", 1, 524288)):
         q, k, v = inputs(b, s)
         case(f"{name} cache_len=S-1", q, k, v, s - 1)
@@ -2083,6 +2122,28 @@ def quickstart_twin(dev) -> dict:
     return out
 
 
+def rag_twin(dev) -> dict:
+    """``examples/rag_serving_torch.py`` at its own size on the card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "rag_serving_torch", ROOT / "examples" / "rag_serving_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.run(RAG_TWIN_REQUESTS, device=dev)
+    s = time.perf_counter() - t0
+    res = out["result"]
+    n = RAG_TWIN_REQUESTS // mod.BATCH * mod.BATCH
+    if res.tokens.shape != (n, mod.GEN_LEN + 1) or \
+            not ((0 <= res.tokens) & (res.tokens < mod.GEN_CFG.vocab_size))\
+            .all() or not np.isfinite(res.ttft_s).all() or \
+            (res.decode_tps <= 0).any() or \
+            not out["device"].startswith("cuda"):
+        raise AssertionError(f"RAG twin: malformed output on "
+                             f"{out['device']}")
+    return {"summary": res.summary(), "device": out["device"], "s": s}
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the continuous-batching scheduler at full width
 # ---------------------------------------------------------------------------
@@ -2438,9 +2499,11 @@ def report_scheduler(sp: dict) -> None:
              f"{s['slo_attainment']:.4f}")
 
 
-def decode_run(params, cfg, prompt, backend):
+def decode_run(params, cfg, prompt, backend, feed=None):
     """One batch through prefill and RAG_GEN greedy decode steps, keeping
-    every step's logits (f32): (tokens [B, RAG_GEN+1], logits)."""
+    every step's logits (f32): (tokens [B, RAG_GEN+1], logits).  With
+    ``feed`` (another run's tokens) step j takes ``feed[:, j]`` as its
+    input instead of its own greedy token."""
     from repro_torch.models import transformer as tf
     from repro_torch.utils import first_argmax
 
@@ -2449,7 +2512,8 @@ def decode_run(params, cfg, prompt, backend):
     cache = tf.init_kv_cache(cfg, b, n + RAG_GEN, device=prompt.device)
     toks, logits = [first_argmax(lg).int()], [lg.float()]
     for j in range(RAG_GEN):
-        lg, cache = tf.decode_step(params, cache, toks[-1], n + j, cfg,
+        tok = toks[-1] if feed is None else feed[:, j]
+        lg, cache = tf.decode_step(params, cache, tok, n + j, cfg,
                                    backend=backend)
         toks.append(first_argmax(lg).int())
         logits.append(lg.float())
@@ -2493,7 +2557,6 @@ def rag_path(dev, world, service, index, counters) -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import HasEngine
     from repro_torch.serving.rag import build_prompt, serve_rag
-    from repro_torch.utils import first_argmax
 
     info = {}
     cfg = LM_CONFIGS["chatglm3-6b"]
@@ -2538,11 +2601,32 @@ def rag_path(dev, world, service, index, counters) -> dict:
     prompt = torch.as_tensor(
         build_prompt(queries[:RAG_BATCH], res.ids[:RAG_BATCH], RAG_PROMPT),
         dtype=torch.int32, device=dev)
+    info["profile"], info["prefill_profile"] = profile_generator(
+        params, cfg, prompt)
+    tk, lk = decode_run(params, cfg, prompt, None)
+    if not torch.equal(tk.cpu(), torch.as_tensor(res.tokens[:RAG_BATCH])):
+        raise AssertionError("RAG replay: the kernel run does not repeat "
+                             "serve_rag's tokens")
+    tp, lp = decode_run(params, cfg, prompt, "torch")
+    info["replay"] = compare_greedy(tk, lk, tp, lp)
+    del params
+    torch.cuda.empty_cache()
+    return info
+
+
+def profile_generator(params, cfg, prompt) -> tuple[dict, dict]:
+    """One batch's decode window (RAG_GEN greedy steps from a fresh cache,
+    after the prefill's token) on the host clock and under the profiler,
+    then one prefill under the profiler."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import first_argmax
+
+    b = prompt.shape[0]
     first = first_argmax(tf.prefill(params, prompt, cfg)).int()
 
     def window():
-        cache = tf.init_kv_cache(cfg, RAG_BATCH, RAG_PROMPT + RAG_GEN,
-                                 device=dev)
+        cache = tf.init_kv_cache(cfg, b, RAG_PROMPT + RAG_GEN,
+                                 device=prompt.device)
         tok = first
         for j in range(RAG_GEN):
             lg, cache = tf.decode_step(params, cache, tok, RAG_PROMPT + j,
@@ -2557,7 +2641,7 @@ def rag_path(dev, world, service, index, counters) -> dict:
     counts = {}
     times = device_times(window, 1, warm=False, counts=counts)
     busy = sum(times.values()) / RAG_GEN
-    info["profile"] = {
+    profile = {
         "steps": RAG_GEN, "wall_us_per_step": wall_us,
         "device_busy_us_per_step": busy,
         "device_idle_share": 1.0 - busy / wall_us,
@@ -2566,21 +2650,338 @@ def rag_path(dev, world, service, index, counters) -> dict:
             times, DECODE_KERNELS)
         / RAG_GEN,
         "top_kernels_us_per_step": top_ops(times, 10, RAG_GEN)}
-
     pre = device_times(lambda: tf.prefill(params, prompt, cfg), 1)
-    info["prefill_profile"] = {
-        "device_busy_ms": sum(pre.values()) / 1e3,
-        "top_kernels_ms": top_ops(pre, 8, 1e3)}
+    return profile, {"device_busy_ms": sum(pre.values()) / 1e3,
+                     "top_kernels_ms": top_ops(pre, 8, 1e3)}
 
-    tk, lk = decode_run(params, cfg, prompt, None)
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the MoE generators at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_tap(calls: list):
+    """Keep (layer params, x, out) of every decode call of the MoE layer
+    (one token a row), in call order: step-major, layer-minor."""
+    from repro_torch.models import layers as L
+    moe = L.moe
+
+    def tapped(params, x, **kw):
+        out, aux = moe(params, x, **kw)
+        if x.shape[1] == 1:
+            calls.append((params, x.clone(), out.clone()))
+        return out, aux
+
+    L.moe = tapped
+    try:
+        yield
+    finally:
+        L.moe = moe
+
+
+def moe_decisions(cfg, calls) -> list[dict]:
+    """Each tapped call's routing as the layer computes it (the same
+    ``_moe_dispatch`` on the same input): per token its experts
+    (ascending), kept and zeroed flags (zeroed: kept at position 0 of an
+    expert that dropped an entry), its f32 router logits; the dropped
+    (token, slot) pairs, the zeroed tokens and the capacity."""
+    from repro_torch.models import layers as L
+
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    out = []
+    for params, x, _ in calls:
+        xt = x.reshape(-1, x.shape[-1])
+        cap = int(cfg.capacity_factor * xt.shape[0] * k / e) + 1
+        _, r, _ = L._moe_dispatch(xt, params["router"], k, cap, e)
+        experts = r.gate_idx.sort(dim=1).values
+        kept = r.keep[r.add_order]
+        zeroed = kept & (r.slot[r.add_order] % cap == 0) & r.overflow[experts]
+        out.append({"experts": experts.cpu(), "kept": kept.cpu(),
+                    "zeroed": zeroed.cpu(),
+                    "logits": (xt.float() @ params["router"].float()).cpu(),
+                    "dropped": int((~r.keep).sum()),
+                    "zeroed_tokens": int(zeroed.sum()), "capacity": cap})
+    return out
+
+
+def moe_plain_loop(cfg, params, x) -> tuple[torch.Tensor, dict]:
+    """The MoE layer as a plain loop in f32 (``tests/test_models.py:75-98``
+    with the capacity rule): each token's top-k experts (ties to the lower
+    index) with renormalised weights; entries taken expert by expert in
+    token order, those past the capacity dropped; an expert that drops an
+    entry gives its first token nothing; each kept entry's SwiGLU through
+    the expert's weights widened to f32."""
+    from repro_torch.models import layers as L
+
+    xt = x.reshape(-1, x.shape[-1]).float()
+    t, e, k = xt.shape[0], cfg.moe_experts, cfg.moe_top_k
+    cap = int(cfg.capacity_factor * t * k / e) + 1
+    probs = torch.softmax(xt @ params["router"].float(), -1).cpu()
+    entries = []
+    for tok in range(t):
+        ids = sorted(range(e), key=lambda j: (-float(probs[tok, j]), j))[:k]
+        w = probs[tok, ids] / probs[tok, ids].sum()
+        entries += [(ex, tok, float(wi)) for ex, wi in zip(ids, w)]
+    seen, first, over, kept = {}, {}, set(), []
+    for ex, tok, w in sorted(entries, key=lambda en: (en[0], en[1])):
+        n = seen.get(ex, 0)
+        if n >= cap:
+            over.add(ex)
+            continue
+        first.setdefault(ex, tok)
+        seen[ex] = n + 1
+        kept.append((ex, tok, w))
+    out = torch.zeros_like(xt)
+    for ex, tok, w in kept:
+        if ex in over and first[ex] == tok:
+            continue
+        h = L.silu(xt[tok] @ params["w_gate"][ex].float()) * (
+            xt[tok] @ params["w_in"][ex].float())
+        out[tok] += w * (h @ params["w_out"][ex].float())
+    return out, {"dropped": len(entries) - len(kept), "zeroed_tokens":
+                 len(over), "capacity": cap}
+
+
+def compare_moe_greedy(n_layers, tk, lk, tp, lp, dk, dp) -> dict:
+    """Kernel run (tk, lk) vs plain run (tp, lp) of one batch through an
+    MoE generator, the plain run fed the kernel run's tokens, so both take
+    the same input at every step.  Where a row's greedy tokens differ, the
+    two tokens must be a near-tie of the logits in both runs (LOGIT_TOL),
+    as ``compare_greedy`` checks them.  The rows of a batch share the
+    experts' capacity, so a row is compared while, in every layer, its
+    experts and its kept and zeroed flags agree, and leaves where one of
+    them first parts:
+    - its experts differ: the swapped experts' router logits must lie
+      within ROUTER_TOL in both runs (a near-tie of the routing);
+    - only its flags differ: another row's experts must differ in that
+      layer (the capacity then orders other tokens).
+    While it is compared its logits agree within LOGIT_TOL."""
+    tk, tp = tk.cpu(), tp.cpu()
+    b, n = tk.shape
+    alive, ended, ties = set(range(b)), {}, []
+    max_err, router_err = 0.0, 0.0
+    for i in range(n):
+        for layer in range(n_layers if i else 0):
+            ck, cp = dk[(i - 1) * n_layers + layer], dp[(i - 1) * n_layers
+                                                        + layer]
+            moved = {r for r in range(b)
+                     if not torch.equal(ck["experts"][r], cp["experts"][r])}
+            for r in sorted(alive):
+                if r in moved:
+                    a = set(ck["experts"][r].tolist())
+                    c = set(cp["experts"][r].tolist())
+                    gaps = [max(abs(float(lg[r, x] - lg[r, y]))
+                                for x in a - c for y in c - a)
+                            for lg in (ck["logits"], cp["logits"])]
+                    if max(gaps) > ROUTER_TOL:
+                        raise AssertionError(
+                            f"MoE replay: row {r} step {i - 1} layer {layer}"
+                            f" routes to {sorted(a)} vs {sorted(c)}, not a "
+                            f"near-tie ({gaps})")
+                    ended[r] = {"index": i, "layer": layer,
+                                "why": "routing near-tie",
+                                "experts": [sorted(a), sorted(c)],
+                                "router_logit_gaps": gaps}
+                elif not (torch.equal(ck["kept"][r], cp["kept"][r])
+                          and torch.equal(ck["zeroed"][r], cp["zeroed"][r])):
+                    if not moved:
+                        raise AssertionError(
+                            f"MoE replay: row {r} step {i - 1} layer {layer}"
+                            f": capacity decisions differ on equal routing")
+                    ended[r] = {"index": i, "layer": layer,
+                                "why": "capacity shared with rows "
+                                       f"{sorted(moved)}"}
+                else:
+                    router_err = max(router_err, float(
+                        (ck["logits"][r] - cp["logits"][r]).abs().max()))
+                    continue
+                alive.discard(r)
+        for r in sorted(alive):
+            err = float((lk[r, i] - lp[r, i]).abs().max())
+            max_err = max(max_err, err)
+            if err > LOGIT_TOL:
+                raise AssertionError(f"MoE replay: logits of row {r} at "
+                                     f"{i} differ by {err}")
+            if tk[r, i] != tp[r, i]:
+                x, y = int(tk[r, i]), int(tp[r, i])
+                gaps = [float((lg[r, i, x] - lg[r, i, y]).abs())
+                        for lg in (lk, lp)]
+                if max(gaps) > LOGIT_TOL:
+                    raise AssertionError(f"MoE replay: tokens {x} vs {y} at "
+                                         f"row {r}, index {i} are not a "
+                                         f"near-tie ({gaps})")
+                ties.append({"row": r, "index": i, "tokens": [x, y],
+                             "logit_gaps": gaps})
+    compared = sum(ended.get(r, {"index": n})["index"] for r in range(b))
+    return {"max_logit_err": max_err, "logit_tol": LOGIT_TOL,
+            "max_router_logit_err": router_err, "router_tol": ROUTER_TOL,
+            "rows_to_the_end": len(alive), "ended": ended,
+            "positions_compared": compared,
+            "tokens_equal": compared - len(ties), "logit_near_ties": ties}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(map(tree_bytes, tree.values() if isinstance(tree, dict)
+                   else tree))
+
+
+def moe_arch_path(dev, world, service, index, counters, name,
+                  n_layers) -> dict:
+    """One MoE generator, full width, ``n_layers`` deep, behind a fresh
+    ``HasEngine`` on phase 4's world and index."""
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.core.has import HasConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import HasEngine
+    from repro_torch.serving.rag import build_prompt, serve_rag
+
+    cfg = dataclasses.replace(LM_CONFIGS[name], n_layers=n_layers)
+    info = {"layers": n_layers, "of_layers": LM_CONFIGS[name].n_layers,
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    info["init_params_s"] = time.perf_counter() - t0
+    info["weights_gb"] = tree_bytes(params) / 1e9
+    engine = HasEngine(service, HasConfig(k=K, tau=0.2, h_max=5000,
+                                          doc_capacity=50_000, nprobe=64,
+                                          n_buckets=8192, d=768),
+                       index=index)
+    queries = world.sample_queries(MOE_REQUESTS, **stream_kw(), seed=4)
+
+    counters.reset()
+    t0 = time.perf_counter()
+    res = serve_rag(engine, queries, params, cfg, batch=RAG_BATCH,
+                    prompt_len=RAG_PROMPT, gen_len=RAG_GEN)
+    info["serve_s"] = time.perf_counter() - t0
+    info["launches"] = counters.read()
+    want = n_layers * RAG_GEN * (MOE_REQUESTS // RAG_BATCH)
+    if info["launches"]["decode_attention"] != want:
+        raise AssertionError(f"{name}: decode_attention launched "
+                             f"{info['launches']['decode_attention']} times,"
+                             f" want {want}")
+    for kname in ("topk_search", "ivf_scan", "homology_score"):
+        if info["launches"][kname] <= 0:
+            raise AssertionError(f"{name}: {kname} was not launched")
+    if res.tokens.shape != (MOE_REQUESTS, RAG_GEN + 1) or \
+            res.ids.shape != (MOE_REQUESTS, K) or \
+            not ((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all() or \
+            not np.isfinite(res.ttft_s).all() or (res.decode_tps <= 0).any():
+        raise AssertionError(f"{name}: malformed output")
+    info["summary"] = res.summary()
+    info["ttft_s"] = res.ttft_s.tolist()
+    info["decode_tps"] = res.decode_tps.tolist()
+    info["distinct_tokens"] = int(len(np.unique(res.tokens)))
+
+    prompt = torch.as_tensor(
+        build_prompt(queries[:RAG_BATCH], res.ids[:RAG_BATCH], RAG_PROMPT),
+        dtype=torch.int32, device=dev)
+    info["profile"], info["prefill_profile"] = profile_generator(
+        params, cfg, prompt)
+    calls_k, calls_p = [], []
+    with moe_tap(calls_k):
+        tk, lk = decode_run(params, cfg, prompt, None)
     if not torch.equal(tk.cpu(), torch.as_tensor(res.tokens[:RAG_BATCH])):
-        raise AssertionError("RAG replay: the kernel run does not repeat "
+        raise AssertionError(f"{name}: the kernel run does not repeat "
                              "serve_rag's tokens")
-    tp, lp = decode_run(params, cfg, prompt, "torch")
-    info["replay"] = compare_greedy(tk, lk, tp, lp)
-    del params
+    with moe_tap(calls_p):
+        tp, lp = decode_run(params, cfg, prompt, "torch", feed=tk)
+    if not len(calls_k) == len(calls_p) == n_layers * RAG_GEN:
+        raise AssertionError(f"{name}: {len(calls_k)} MoE decode calls")
+    dk, dp = moe_decisions(cfg, calls_k), moe_decisions(cfg, calls_p)
+    info["replay"] = compare_moe_greedy(n_layers, tk, lk, tp, lp, dk, dp)
+    steps = [dk[j * n_layers:(j + 1) * n_layers] for j in range(RAG_GEN)]
+    info["routing"] = {
+        "capacity": dk[0]["capacity"],
+        "dropped_per_step": [[d["dropped"] for d in st] for st in steps],
+        "zeroed_per_step": [[d["zeroed_tokens"] for d in st]
+                            for st in steps],
+        "entries_per_layer_step": RAG_BATCH * cfg.moe_top_k}
+
+    # the layer at full width against the plain loop: decode step 0, layer 0
+    lp0, x0, out0 = calls_k[0]
+    want_out, plain = moe_plain_loop(cfg, lp0, x0)
+    err = float((out0.reshape(want_out.shape).float() - want_out)
+                .abs().max())
+    if not torch.isfinite(out0).all() or err > MOE_TOL:
+        raise AssertionError(f"{name}: the MoE layer differs from the plain "
+                             f"loop by {err}")
+    for key in ("dropped", "zeroed_tokens", "capacity"):
+        if plain[key] != dk[0][key]:
+            raise AssertionError(f"{name}: plain loop {key} {plain[key]}, "
+                                 f"the layer's {dk[0][key]}")
+    info["plain_loop"] = dict(plain, max_abs_err=err, tolerance=MOE_TOL,
+                              max_abs_out=float(want_out.abs().max()))
+    info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, calls_k, calls_p, lp0, x0, out0
     torch.cuda.empty_cache()
     return info
+
+
+def moe_path(dev, world, service, index, counters) -> dict:
+    """Phase 6b: dbrx-132b, then arctic-480b (each freed before the
+    next)."""
+    return {name: moe_arch_path(dev, world, service, index, counters, name,
+                                n_layers)
+            for name, n_layers in MOE_ARCHS.items()}
+
+
+def report_moe(moe: dict) -> None:
+    for name, m in moe.items():
+        sm, pr, pp, rp = (m["summary"], m["profile"], m["prefill_profile"],
+                          m["replay"])
+        rt, pl = m["routing"], m["plain_loop"]
+        log(f"[MoE {name}] full width, {m['layers']} of {m['of_layers']} "
+            f"layers ({m['params'] / 1e9:.2f} B params, "
+            f"{m['active_params'] / 1e9:.2f} B active, bf16, "
+            f"{m['weights_gb']:.1f} GB on the card; weights drawn in "
+            f"{m['init_params_s']:.1f} s): {sm['requests']} requests, batch "
+            f"{RAG_BATCH}, prompt {RAG_PROMPT}, {RAG_GEN} decode steps in "
+            f"{m['serve_s']:.1f} s; peak memory {m['peak_memory_gb']:.1f} GB")
+        log(f"[MoE {name}] TTFT mean {sm['ttft_avg_s'] * 1e3:.1f} ms, per "
+            f"batch {[round(t * 1e3, 1) for t in m['ttft_s']]} ms; decode "
+            f"{sm['decode_tps_avg']:.1f} tokens/s mean, per batch "
+            f"{[round(t, 1) for t in m['decode_tps']]}; retrieval DAR "
+            f"{sm['dar']:.4f}; {m['distinct_tokens']} distinct tokens")
+        log(f"[MoE {name}] launches: {m['launches']}")
+        log(f"[MoE {name}] decode window of {pr['steps']} steps: "
+            f"{pr['wall_us_per_step']:.1f} us/step wall, device busy "
+            f"{pr['device_busy_us_per_step']:.1f} us/step (profiler), idle "
+            f"share {pr['device_idle_share']:.3f}, "
+            f"{pr['launches_per_step']:.0f} kernel launches/step; "
+            f"decode_attention {pr['decode_attention_us_per_step']:.1f} "
+            f"us/step; top kernels us/step: "
+            f"{json.dumps(pr['top_kernels_us_per_step'])}")
+        log(f"[MoE {name}] one prefill (batch {RAG_BATCH} x {RAG_PROMPT}): "
+            f"device busy {pp['device_busy_ms']:.1f} ms (profiler); top "
+            f"kernels ms: {json.dumps(pp['top_kernels_ms'])}")
+        drops = [sum(st) for st in rt["dropped_per_step"]]
+        zeros = [sum(st) for st in rt["zeroed_per_step"]]
+        log(f"[MoE {name}] routing at decode (batch 0, capacity "
+            f"{rt['capacity']}, {rt['entries_per_layer_step']} entries a "
+            f"layer): dropped (token, slot) pairs a step over the layers "
+            f"min/mean/max {min(drops)}/{np.mean(drops):.2f}/{max(drops)}, "
+            f"zeroed slot-0 tokens {min(zeros)}/{np.mean(zeros):.2f}/"
+            f"{max(zeros)}; per step {drops}; zeroed {zeros}")
+        log(f"[MoE {name}] layer 0, decode step 0 against a plain f32 loop "
+            f"over each token's experts: max abs error {pl['max_abs_err']:.4g}"
+            f" (tolerance {MOE_TOL}, |out| up to {pl['max_abs_out']:.3g}); "
+            f"dropped {pl['dropped']}, zeroed {pl['zeroed_tokens']}, "
+            f"capacity {pl['capacity']} equal to the layer's")
+        log(f"[MoE {name}] replay of batch 0, backend=torch fed the "
+            f"kernel run's tokens: {rp['rows_to_the_end']}/{RAG_BATCH} rows "
+            f"compared to the end, {rp['positions_compared']} token "
+            f"positions compared, {rp['tokens_equal']} equal, the rest "
+            f"proven logit near-ties {json.dumps(rp['logit_near_ties'])}; "
+            f"logits within {rp['max_logit_err']:.4g} (tolerance "
+            f"{LOGIT_TOL}), router logits within "
+            f"{rp['max_router_logit_err']:.3g} while the routing agreed "
+            f"(near-tie tolerance {ROUTER_TOL}); rows ended: "
+            f"{json.dumps(rp['ended'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -3645,10 +4046,23 @@ def main() -> int:
         f"row's tokens part; parted at proven near-ties: "
         f"{rp['parted_rows']}")
 
+    # phase 6b: the MoE generators at full width, cut in depth
+    t0 = time.perf_counter()
+    moe = moe_path(dev, world, service, index, counters)
+    moe_s = time.perf_counter() - t0
+    report_moe(moe)
+    log(f"[MoE] phase 6b in {moe_s:.1f} s")
+
     # phase 7: the micro-batched and tenant-partitioned engine, baselines
     bat = batched_path(dev, world, queries, service, index, counters)
     report_batched(bat)
     qs = quickstart_twin(dev)
+    rt = rag_twin(dev)
+    log(f"[RAG twin] examples/rag_serving_torch.py, {RAG_TWIN_REQUESTS} "
+        f"requests on {rt['device']} in {rt['s']:.1f} s: DAR "
+        f"{rt['summary']['dar']:.4f}, TTFT mean "
+        f"{rt['summary']['ttft_avg_s'] * 1e3:.2f} ms, decode "
+        f"{rt['summary']['decode_tps_avg']:.1f} tokens/s")
     t0 = time.perf_counter()
     sp = scheduler_path(dev, world, queries, service, index, counters)
     sp["phase_s"] = time.perf_counter() - t0
@@ -3717,6 +4131,8 @@ def main() -> int:
         # recsys kernels' on their own paths (phase 9 runs neither)
         launches = p9["launches"][name] if name in RETRIEVAL_KERNELS \
             else path["launches"][name]
+        if name == "decode_attention":            # phase 6 and phase 6b
+            launches += sum(m["launches"][name] for m in moe.values())
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces,
                         "launches": launches,
@@ -3732,6 +4148,7 @@ def main() -> int:
          "ptxas": ptxas, "dynamic_smem": dyn_smem,
          "phase3_s": phase3_s, "world_build_s": world_s, "kernels": kres,
          "main_path": info, "hybrid_path": hyb, "rag_path": rag,
+         "moe_path": moe, "moe_phase_s": moe_s, "rag_twin": rt,
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path, "world_digests": digest_info,
          "phase9": p9,

@@ -117,7 +117,13 @@ def transformer_params_from_numpy(tree: Mapping, cfg: TransformerConfig,
                                   dtype=torch.bfloat16) -> dict:
     """The reference's parameter tree (numpy leaves, layers stacked) -> the
     port's parameters in ``dtype`` (``final_norm`` stays f32, as the
-    reference never casts it)."""
+    reference never casts it).  Every subtree of a layer goes across as it
+    is: ``attn``, the norms, ``mlp``, and for an MoE config ``moe``
+    (``router``, ``w_in``, ``w_gate``, ``w_out``, each stacked over
+    layers) with Arctic's dense-residual ``mlp`` beside it.  The router is
+    f32 in the reference's tree and ``dtype`` here: the reference casts it
+    to its compute dtype before use, so the port holds the value it
+    computes with (and widens it to f32 for the routing product)."""
     dev = resolve_device(device)
 
     def leaf(a, dt=dtype):
@@ -139,7 +145,8 @@ def transformer_params_from_numpy(tree: Mapping, cfg: TransformerConfig,
 
 def transformer_params_to_numpy(params: Mapping) -> dict:
     """The port's parameters -> the reference's tree of f32 numpy arrays,
-    per-layer leaves stacked over layers."""
+    per-layer leaves stacked over layers (the ``moe`` subtree too; its
+    router comes back as the f32 widening of the port's)."""
     def arr(t):
         return t.float().cpu().numpy()
 

@@ -1,19 +1,30 @@
-"""Dense transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU/GeLU MLP.
+"""Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU/GeLU MLP, MoE.
 
 Twins of ``src/repro/models/layers.py`` (norms, rotary embeddings,
-attention, MLP) as plain tensor functions over parameter dicts with the
-reference's layouts (``wq [Dm,H,Dh]``, ``wo [H,Dh,Dm]``, activations
-``[B,S,H,D]``).  The reference's sharding constraints have no role on one
-card and are gone.  The MoE layer is not ported.
+attention, MLP, the top-k Mixture of Experts) as plain tensor functions
+over parameter dicts with the reference's layouts (``wq [Dm,H,Dh]``,
+``wo [H,Dh,Dm]``, ``w_in [E,Dm,F]``, activations ``[B,S,H,D]``).  The
+reference's sharding constraints have no role on one card and are gone,
+and so is ``moe_logical``, which only names the experts' mesh axes.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import decode_attention_op
+from repro_torch.utils import stable_topk
 
 NEG = -1e30            # the reference's mask value (not -inf)
+
+
+def normal(g, shape, scale, dtype, dev) -> torch.Tensor:
+    """``scale`` times a standard normal draw (f32, from ``g``), in
+    ``dtype``."""
+    x = torch.randn(shape, generator=g, dtype=torch.float32, device=dev)
+    return (x * scale).to(dtype)
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -142,3 +153,159 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k routing, sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(g, d_model: int, d_ff: int, n_experts: int, dtype, dev) -> dict:
+    """The reference's shapes and scales, drawn from ``g`` one expert at a
+    time (a full f32 draw of arctic-480b's ``[128, 7168, 4864]`` would take
+    17.9 GB).  The router is held in ``dtype`` like every other weight: the
+    reference draws it in f32 but casts it to the compute dtype before
+    use, and :func:`moe` widens it back to f32 for the routing product."""
+    s_in, s_out = d_model ** -0.5, d_ff ** -0.5
+
+    def experts(shape, scale):
+        w = torch.empty((n_experts, *shape), dtype=dtype, device=dev)
+        for i in range(n_experts):
+            w[i] = normal(g, shape, scale, dtype, dev)
+        return w
+
+    return {"router": normal(g, (d_model, n_experts), s_in, dtype, dev),
+            "w_in": experts((d_model, d_ff), s_in),
+            "w_gate": experts((d_model, d_ff), s_in),
+            "w_out": experts((d_ff, d_model), s_out)}
+
+
+@dataclasses.dataclass
+class MoeRouting:
+    """One token group's dispatch, in the reference's expert-major sorted
+    order of the ``T*k`` (token, slot) entries: the buffer row ``slot``
+    each entry reads (``expert * capacity + position``, position 0 when
+    dropped), its token ``src`` (``T`` when dropped), its gate weight
+    ``sw`` and ``keep``; ``add_order [T, k]``, each token's entries'
+    sorted positions ascending (the order of the reference's scatter
+    adds); ``gate_idx [T, k]``; ``overflow [E]``, the experts that dropped
+    an entry (each also lost the token it kept at position 0, see
+    :func:`_moe_dispatch`); and ``capacity``."""
+    slot: torch.Tensor
+    src: torch.Tensor
+    sw: torch.Tensor
+    keep: torch.Tensor
+    add_order: torch.Tensor
+    gate_idx: torch.Tensor
+    overflow: torch.Tensor
+    capacity: int
+
+
+def _moe_dispatch(xt: torch.Tensor, router: torch.Tensor, top_k: int,
+                  capacity: int, e: int):
+    """Sort-based capacity dispatch of one token group (``layers.py:
+    277-308``).  ``xt [T, Dm]`` -> (buf ``[E, capacity, Dm]``,
+    :class:`MoeRouting`, the Switch-style aux loss).
+
+    Routing is an f32 product with the router widened to f32, a softmax,
+    the top-k with ties to the lower expert and the renormalised weights.
+    The entries sort stably by expert, so each expert's are in (token,
+    slot) order, and those past ``capacity`` are dropped.  The reference
+    writes every dropped entry's zero row to position 0 of its expert,
+    after the kept rows (the last of duplicate writes wins on its CPU), so
+    an expert that drops anything also loses the token it kept at position
+    0.  The port writes the kept rows, then zeroes position 0 of every
+    expert that dropped an entry, without relying on the order of
+    duplicate writes.  No step waits for the device.
+    """
+    t, dm = xt.shape
+    dev = xt.device
+    logits = xt.float() @ router.float()                          # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx = stable_topk(probs, top_k)                  # [T, k]
+    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
+
+    # aux load-balancing loss (Switch-style)
+    density = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
+    aux = (density * probs.mean(dim=0)).sum() * e
+
+    flat_e = gate_idx.reshape(-1)                                  # [T*k]
+    order = torch.argsort(flat_e, stable=True)
+    se, sw = flat_e[order], gate_w.reshape(-1)[order]
+    st = order // top_k
+    experts = torch.arange(e, device=dev)
+    seg_start = torch.searchsorted(se, experts)
+    overflow = torch.searchsorted(se, experts, right=True) - seg_start \
+        > capacity
+    pos = torch.arange(t * top_k, device=dev) - seg_start[se]
+    keep = pos < capacity
+    slot = se * capacity + torch.where(keep, pos, 0)
+    # each token's entries in sorted (expert) order
+    at = torch.empty_like(order)
+    at[order] = torch.arange(t * top_k, device=dev)
+    add_order = at.view(t, top_k).sort(dim=1).values
+
+    # kept rows to their slots, dropped ones to a spare row cut off after
+    buf = xt.new_zeros((e * capacity + 1, dm))
+    buf[torch.where(keep, slot, e * capacity)] = xt[st]
+    buf = buf[:-1].view(e, capacity, dm)
+    buf[:, 0] = torch.where(overflow[:, None], 0.0, buf[:, 0])
+    return buf, MoeRouting(slot, torch.where(keep, st, t), sw, keep,
+                           add_order, gate_idx, overflow, capacity), aux
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference's XLA computes it, ``x * (1 / (1 +
+    exp(-x)))`` with each step rounded to ``x``'s dtype.  In bf16 this is
+    bit-equal to the reference on the CPU, where ``F.silu`` (one rounding)
+    differs in about 40% of the elements by an ulp."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _moe_experts(params, buf: torch.Tensor) -> torch.Tensor:
+    """``buf [E, C, Dm]`` through each expert's SwiGLU -> ``[E, C, Dm]``."""
+    h = silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf,
+                                                           params["w_in"])
+    return torch.bmm(h, params["w_out"])
+
+
+def _moe_combine(out_buf: torch.Tensor, r: MoeRouting,
+                 dtype) -> torch.Tensor:
+    """Each entry's expert output times ``sw * keep`` (an f32 product,
+    then ``dtype``), summed per token in ``dtype`` in the reference's
+    scatter order: its entries by ascending expert, rounded after each
+    add.  Dropped entries add zeros.  -> ``[T, Dm]``."""
+    flat = out_buf.reshape(-1, out_buf.shape[-1])
+    w = (r.sw * r.keep)[:, None]
+    parts = (flat[r.slot].float() * w).to(dtype)[r.add_order]    # [T,k,Dm]
+    out = parts[:, 0]
+    for j in range(1, parts.shape[1]):
+        out = out + parts[:, j]
+    return out
+
+
+def moe(params, x: torch.Tensor, *, top_k: int,
+        capacity_factor: float = 1.25, dp_groups: int = 1):
+    """Top-k MoE with sort-based, fixed-capacity dispatch (``layers.py:
+    327-386``).  ``x [B, S, Dm]`` -> ``(out [B, S, Dm], aux)``.
+
+    ``dp_groups = G > 1`` dispatches each of G equal token groups on its
+    own, at the per-group capacity ``int(cf * T/G * k / E) + 1``, and aux
+    is the mean over groups (the reference's hierarchical dispatch; here a
+    loop over groups, the experts run once over all groups' buffers).
+    """
+    b, s, dm = x.shape
+    e = params["router"].shape[-1]
+    t, g = b * s, max(dp_groups, 1)
+    if t % g:
+        raise ValueError(f"moe: {t} tokens over {g} groups")
+    t_g = t // g
+    capacity = int(capacity_factor * t_g * top_k / e) + 1
+    groups = [_moe_dispatch(xt, params["router"], top_k, capacity, e)
+              for xt in x.reshape(g, t_g, dm)]
+    buf = torch.stack([gr[0] for gr in groups], dim=1)    # [E, G, C, Dm]
+    out_buf = _moe_experts(params, buf.view(e, g * capacity, dm))
+    out_buf = out_buf.view(e, g, capacity, dm)
+    out = torch.cat([_moe_combine(out_buf[:, i], gr[1], x.dtype)
+                     for i, gr in enumerate(groups)])
+    aux = torch.stack([gr[2] for gr in groups]).mean()
+    return out.view(b, s, dm), aux

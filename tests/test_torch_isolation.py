@@ -29,7 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
        ROOT / "examples" / "async_serving_torch.py",
-       ROOT / "examples" / "agentic_multihop_torch.py"]
+       ROOT / "examples" / "agentic_multihop_torch.py",
+       ROOT / "examples" / "rag_serving_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -165,6 +166,35 @@ def test_cloud_backend_and_agentic_entry_points_refuse_cpu_fallback(
     assert be.index.bucket_ids.device.type == "cpu"
     assert len(serve.main(["--queries", "4", "--entities", "40",
                            "--device", "cpu"]).accepts) == 4
+
+
+def test_moe_generator_and_rag_twin_refuse_cpu_fallback(monkeypatch):
+    import importlib.util
+
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tf.TransformerConfig(name="t", n_layers=1, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_ff=32, vocab_size=64,
+                               d_head=8, moe_experts=4, moe_dense_residual=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_params(LM_CONFIGS["dbrx-132b"])      # before any draw
+    spec = importlib.util.spec_from_file_location(
+        "rag_serving_torch", ROOT / "examples" / "rag_serving_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twin.run(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twin.main(["8"])
+    # asked for explicitly, the CPU works
+    params = tf.init_params(cfg, device="cpu")
+    assert params["layers"][0]["moe"]["w_in"].device.type == "cpu"
+    logits, _ = tf.decode_step(params,
+                               tf.init_kv_cache(cfg, 2, 4, device="cpu"),
+                               torch.zeros(2, dtype=torch.int32), 0, cfg)
+    assert logits.shape == (2, 64)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -204,7 +204,7 @@ def test_forward_prefill_decode(variant):
     toks = rng.integers(0, 256, (2, 6)).astype(np.int32)
     jt, pt = jnp.asarray(toks), torch.tensor(toks)
     full, _ = rtf.forward(rparams, jt, rcfg, compute_dtype=jnp.float32)
-    np.testing.assert_allclose(tf.forward(pparams, pt, pcfg).numpy(),
+    np.testing.assert_allclose(tf.forward(pparams, pt, pcfg)[0].numpy(),
                                np.asarray(full), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(
         tf.prefill(pparams, pt, pcfg).numpy(),
@@ -224,7 +224,7 @@ def test_forward_prefill_decode(variant):
                                    rtol=2e-4, atol=2e-4)
     # and the port's own decode reaches the prefill's last logits
     np.testing.assert_allclose(pl_.numpy(),
-                               tf.forward(pparams, pt, pcfg)[:, -1].numpy(),
+                               tf.forward(pparams, pt, pcfg)[0][:, -1].numpy(),
                                rtol=2e-4, atol=2e-4)
 
 
@@ -232,8 +232,8 @@ def test_blocked_prefill_matches_unblocked():
     rcfg, rparams, pcfg, pparams = _models("chatglm-like")
     blocked = dataclasses.replace(pcfg, attn_block_q=4)
     toks = torch.tensor(np.random.default_rng(5).integers(0, 256, (2, 16)))
-    np.testing.assert_allclose(tf.forward(pparams, toks, blocked).numpy(),
-                               tf.forward(pparams, toks, pcfg).numpy(),
+    np.testing.assert_allclose(tf.forward(pparams, toks, blocked)[0].numpy(),
+                               tf.forward(pparams, toks, pcfg)[0].numpy(),
                                rtol=1e-5, atol=1e-5)
 
 
@@ -293,5 +293,6 @@ def test_dense_configs_match_reference():
                 (name, f.name)
         assert cfg.param_count() == ref.param_count()
     assert LM_CONFIGS["chatglm3-6b"].param_count() == 6_243_454_976
-    with pytest.raises(NotImplementedError):
-        tf.TransformerConfig(name="moe", moe_experts=4, **TINY)
+    # an MoE config builds (the port served dense configs only before)
+    moe = tf.TransformerConfig(name="moe", moe_experts=4, **TINY)
+    assert moe.is_moe and moe.param_count() > moe.active_param_count()
