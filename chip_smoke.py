@@ -141,7 +141,25 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    the scheduler with ``speculate_hops`` on and off, each replayed with
    torch; (f) ``repro_torch.launch.serve.main`` with the scheduler and 25%
    agentic traffic for each cloud backend, and two flag sets that exit 2;
-10. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
+10. the LM training path, after the earlier phases' worlds, indexes and
+   weights are freed (the memory still allocated is printed): (a)
+   ``repro_torch.launch.train.main`` on the lm100m preset, 200 steps with
+   checkpoints, then 20 more resumed from step 200, both within
+   ``RESUME_TOL`` of an uninterrupted 220-step run, the loss falling, the
+   ``MarkovLM`` digests asserted first; (b) chatglm3-6b at full width, 15
+   of 28 layers, f32 masters, bf16 compute, remat "full", AdamW, steps of
+   4 micro-batches of 2 x 4096 tokens (``make_train_step_accum``), after
+   checks at 2 layers: remat none / "full" / "dots" equal (each policy's
+   peak memory), accumulation equal to one 8-sequence step in f32, the
+   bf16 loss near the f32 loss; (c) dbrx-132b at full width, 2 of 40
+   layers, bf16 masters with an f32 router, Adafactor in the reference's
+   stacked shapes, one 4096-token sequence a step, the routing that remat
+   recomputes in the backward equal to the forward's.  Each reports step
+   time, tokens/s, model TFLOP/s against 989, peak memory, one profiled
+   step's busy time and idle share, and the optimizer alone.  The eight
+   kernels' counts are set to 0 before phase 10 and must read 0 after:
+   training launches none of them;
+11. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
    recsys kernels' on their own: ``decode_attention`` phases 6 and 6b),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -154,6 +172,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -263,6 +282,31 @@ MOE_TOL = 0.0625
 # agreed: 0.031, dbrx-132b, 4 layers, H100 80GB HBM3 at 700 W)
 ROUTER_TOL = 0.125
 RAG_TWIN_REQUESTS = 200        # examples/rag_serving_torch.py's default
+# phase 10: training
+TRAIN_STEPS, TRAIN_RESUME = 200, 20   # lm100m through launch.train.main
+TRAIN_MICRO, TRAIN_N_MICRO = 2, 4     # chatglm3-6b: 8 sequences a step
+# of 28: the most whose peak stays under ~72 GB (60.1 GB at 12 layers,
+# plus 3.26 GB a layer of f32 weights, grads and AdamW moments; H100 80GB
+# HBM3, 700 W)
+TRAIN_DENSE_LAYERS = 15
+TRAIN_MOE_LAYERS = 2           # of 40: bf16 weights and grads
+TRAIN_CHECK_LAYERS = 2         # 10b's checks, where remat=False fits
+TRAIN_RUN = 3                  # steps of 10b and 10c
+# lm100m, resumed or run twice: the same f32 losses up to the order of the
+# card's adds (this script measured 0 difference on an H100 80GB HBM3 at
+# 700 W)
+RESUME_TOL = 1e-3
+# remat "full" / "dots" against remat=False, bf16 compute: the same
+# products recomputed; loss difference and max gradient error over the
+# largest gradient (measured 0: bit-equal)
+REMAT_TOL = 1e-2
+# accumulation (4 x 2 sequences) against one 8-sequence step, f32: the
+# loss, the norm and the first moment relative to the largest (measured
+# 0, 6.4e-8 and 7.8e-6)
+ACCUM_TOL = 1e-3
+# bf16 against f32 compute on the same masters: the loss (ln 65024 = 11.1;
+# measured 1.0e-4 apart)
+BF16_LOSS_TOL = 0.05
 
 
 def log(*a):
@@ -3835,6 +3879,534 @@ def report_phase9(p9) -> None:
     log(f"[phase 9] {p9['phase_s']:.1f} s; launches {p9['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the LM training path
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a training step: 6 x the parameters a token touches
+    (the embedding's gather excluded) x tokens, plus 12 x layers x seq x
+    heads x d_head x tokens for the S x S scores and their products (the
+    port computes the full square; remat's recompute is not counted)."""
+    n = cfg.active_param_count() - cfg.vocab_size * cfg.d_model
+    return tokens * (6 * n + 12 * cfg.n_layers * seq * cfg.n_heads
+                     * cfg.d_head)
+
+
+def lm_batch(vocab: int, n: int, seq: int, dev) -> dict:
+    """Tokens and labels drawn as ``lm_smoke`` draws them (numpy,
+    ``default_rng(0)``), int32 on the card."""
+    rng = np.random.default_rng(0)
+    return {k: torch.as_tensor(rng.integers(0, vocab, (n, seq)),
+                               dtype=torch.int32, device=dev)
+            for k in ("tokens", "labels")}
+
+
+def loss_and_grads(params, cfg, batch, compute_dtype):
+    """The loss and the gradients of every master leaf (a list), one
+    forward and backward; the parameters are released after."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import leaves
+    ps = [t for _, parts in leaves(params) for t in parts]
+    for t in ps:
+        t.requires_grad_(True)
+    loss, _ = tf.loss_fn(params, batch, cfg, compute_dtype=compute_dtype)
+    loss.backward()
+    grads = [t.grad for t in ps]
+    for t in ps:
+        t.grad = None
+        t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def rel_err(got: list, want: list) -> float:
+    """The largest ``max|got - want| / max|want|`` over the leaves."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def peak_gb(fn) -> float:
+    """Peak memory (GB) above what was allocated before ``fn``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def timed_steps(step, params, state, batch, n: int) -> tuple[list, list]:
+    """``n`` steps on the host clock (each ending in a synchronize) ->
+    (seconds, metrics with floats)."""
+    times, metrics = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return times, metrics
+
+
+def step_profile(step, params, state, batch, wall_s: float) -> dict:
+    """One step under the profiler: device busy (the kernels' sum), idle
+    share against ``wall_s`` (an unprofiled step's), launches, top
+    kernels."""
+    counts = {}
+    times = device_times(lambda: step(params, state, batch), 1, warm=False,
+                         counts=counts)
+    busy_ms = sum(times.values()) / 1e3
+
+    def ms(pred):
+        return sum(v for k, v in times.items() if pred(k)) / 1e3
+
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
+            "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "launches": sum(counts.values()),
+            # cuBLAS's products (nvjet, gemm and cutlass kernels) and the
+            # softmax; the rest is elementwise work, copies and reductions
+            "matmul_ms": ms(lambda k: "nvjet" in k or "gemm" in k.lower()
+                            or "cutlass" in k),
+            "softmax_ms": ms(lambda k: "SoftMax" in k),
+            "top_kernels_ms": top_ops(times, 8, 1e3)}
+
+
+def optimizer_ms(opt_cfg, params, state, update) -> dict:
+    """The optimizer part of a step, timed alone (CUDA events, median of
+    3 after a warm-up) on gradients of the parameters' shapes and dtypes:
+    the global norm, the clip and ``update`` (AdamW or Adafactor, in
+    place), then ``update`` alone."""
+    from repro_torch.training import optimizer as opt
+    grads = tree_map(lambda t: torch.full_like(t, 1e-4), params)
+
+    def run(clip):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        if clip:
+            opt.opt_update(opt_cfg, grads, state, params,
+                           grad_norm=opt.global_norm(grads))
+        else:
+            update(opt_cfg, grads, state, params)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e)
+
+    out = {}
+    for key, clip in (("with_norm_and_clip_ms", True), ("update_ms", False)):
+        run(clip)
+        out[key] = statistics.median(run(clip) for _ in range(3))
+    return out
+
+
+STEP_LINE = re.compile(r"\[train\] step\s+(\d+) loss (\S+) grad_norm "
+                       r"(\S+) (\d+) ms")
+
+
+def run_captured(fn, *a, **kw):
+    """``fn``'s result and its printed lines (kept out of this log)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def train_entry_point(dev) -> dict:
+    """10a: ``launch.train.main`` on the lm100m preset for TRAIN_STEPS
+    steps with checkpoints, then TRAIN_RESUME more steps resumed from the
+    last; both against one uninterrupted run of all the steps."""
+    import tempfile
+
+    from repro_torch.data import digests
+    from repro_torch.data.lm import MarkovLM
+    from repro_torch.launch import train
+
+    got = {size: digests.markov_digests(MarkovLM, size)
+           for size in digests.MARKOV_SIZES}
+    bad = digests.mismatches(got, digests.MARKOV_PINNED)
+    if bad:
+        raise AssertionError(f"MarkovLM digests differ from the "
+                             f"reference's (numpy {np.__version__}): {bad}")
+    log(f"[10a train] MarkovLM digests (table and first batch, "
+        f"{sorted(digests.MARKOV_SIZES)}) equal the reference's, numpy "
+        f"{np.__version__}")
+    n, extra = TRAIN_STEPS, TRAIN_RESUME
+    cfg = train.make_lm100m()
+    info = {"params": cfg.param_count(), "steps": n, "resumed_steps": extra}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as ck:
+        t0 = time.perf_counter()
+        first, lines = run_captured(train.main, [
+            "--preset", "lm100m", "--steps", str(n), "--ckpt-dir", ck])
+        info["first_s"] = time.perf_counter() - t0
+        resumed, lines_r = run_captured(train.main, [
+            "--preset", "lm100m", "--steps", str(n + extra), "--ckpt-dir",
+            ck])
+    whole, lines_w = run_captured(train.train_lm, cfg, n + extra, 8, 128,
+                                  None)
+    if f"[train] resumed from step {n}" not in lines_r:
+        raise AssertionError(f"lm100m: no resume from step {n}: "
+                             f"{lines_r[:3]}")
+    if len(first) != n or len(resumed) != extra or \
+            not np.isfinite(whole).all() or not np.isfinite(first).all():
+        raise AssertionError("lm100m: malformed losses")
+    head, tail = np.mean(first[:10]), np.mean(first[-10:])
+    if not (tail < head and first[-1] < first[0]):
+        raise AssertionError(f"lm100m: the loss did not fall ({head} -> "
+                             f"{tail})")
+    info["resume_err"] = float(np.abs(np.subtract(resumed,
+                                                  whole[n:])).max())
+    info["first_err"] = float(np.abs(np.subtract(first, whole[:n])).max())
+    if max(info["resume_err"], info["first_err"]) > RESUME_TOL:
+        raise AssertionError(f"lm100m: resumed losses {info['resume_err']}"
+                             f", first run {info['first_err']} from the "
+                             f"uninterrupted run's (tolerance {RESUME_TOL})")
+    ms = [float(m.group(4)) for m in map(STEP_LINE.match, lines_w)
+          if m and int(m.group(1)) > 0]
+    info.update(loss_first=first[0], loss_last=first[-1],
+                loss_mean_first10=head, loss_mean_last10=tail,
+                step_ms_median=statistics.median(ms),
+                tokens_per_s=8 * 128 / (statistics.median(ms) / 1e3),
+                losses=whole, printed=lines + lines_r)
+    return info
+
+
+def remat_checks(dev, cfg_full) -> dict:
+    """10b's checks at TRAIN_CHECK_LAYERS layers, full width: (a) remat
+    none, "full" and "dots" on one micro-batch (bf16 compute): equal loss
+    and gradients, each policy's peak; (b) ``make_train_step_accum`` over
+    TRAIN_MICRO x TRAIN_N_MICRO sequences against one ``make_train_step``
+    on them (f32 compute): the loss, the pre-clip norm and AdamW's first
+    moment (0.1 x the clipped gradient after one step); (c) the bf16
+    loss against the f32 loss on the same masters and batch."""
+    import functools
+
+    from repro_torch.configs.families import lm_opt_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import opt_init
+    from repro_torch.training.train import (make_train_step,
+                                            make_train_step_accum)
+
+    cfg = dataclasses.replace(cfg_full, n_layers=TRAIN_CHECK_LAYERS)
+    params = tf.init_master_params(cfg, seed=0, device=dev)
+    batch = lm_batch(cfg.vocab_size, TRAIN_MICRO * TRAIN_N_MICRO,
+                     train_seq(), dev)
+    micro = {k: v[:TRAIN_MICRO] for k, v in batch.items()}
+    out = {"layers": TRAIN_CHECK_LAYERS, "peak_gb": {}}
+    want = None
+    for name, kw in (("none", dict(remat=False)),
+                     ("full", dict(remat=True, remat_policy="full")),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        c = dataclasses.replace(cfg, **kw)
+        res = {}
+        out["peak_gb"][name] = peak_gb(lambda: res.update(
+            lg=loss_and_grads(params, c, micro, torch.bfloat16)))
+        loss, grads = res["lg"]
+        if want is None:
+            want = (loss, grads)
+            continue
+        out[f"{name}_loss_err"] = abs(float(loss) - float(want[0]))
+        out[f"{name}_grad_rel_err"] = rel_err(grads, want[1])
+        del grads, res
+        errs = out[f"{name}_loss_err"], out[f"{name}_grad_rel_err"]
+        if max(errs) > REMAT_TOL:
+            raise AssertionError(f"remat {name}: loss and gradients {errs} "
+                                 f"from remat=False's (tolerance {REMAT_TOL})")
+    del want
+    # (c) bf16 compute against f32 compute, forward only
+    with torch.no_grad():
+        lb = float(tf.loss_fn(params, micro, cfg, torch.bfloat16)[0])
+        lf = float(tf.loss_fn(params, micro, cfg, torch.float32)[0])
+    out.update(loss_bf16=lb, loss_f32=lf, bf16_loss_err=abs(lb - lf))
+    if abs(lb - lf) > BF16_LOSS_TOL:
+        raise AssertionError(f"bf16 loss {lb} vs f32 {lf} (tolerance "
+                             f"{BF16_LOSS_TOL})")
+    # (b) accumulation against the full batch, f32 compute, one step each
+    opt_cfg = lm_opt_config(cfg)
+    lossf = functools.partial(tf.loss_fn, cfg=cfg,
+                              compute_dtype=torch.float32)
+    copy_ = tree_map(torch.clone, params)
+    state = opt_init(opt_cfg, params)
+    _, state, m_full = make_train_step(lossf, opt_cfg)(params, state, batch)
+    m1 = state["m"]
+    del params, state
+    torch.cuda.empty_cache()
+    state = opt_init(opt_cfg, copy_)
+    _, state, m_acc = make_train_step_accum(lossf, opt_cfg, TRAIN_N_MICRO)(
+        copy_, state, batch)
+    from repro_torch.training.optimizer import leaves
+    got = [t for _, ps in leaves(state["m"]) for t in ps]
+    ref = [t for _, ps in leaves(m1) for t in ps]
+    la, lf = float(m_acc["loss"]), float(m_full["loss"])
+    out.update(accum_loss=la, full_loss=lf, accum_loss_err=abs(la - lf),
+               accum_norm_rel_err=abs(float(m_acc["grad_norm"])
+                                      / float(m_full["grad_norm"]) - 1),
+               accum_moment_rel_err=rel_err(got, ref))
+    if max(out["accum_loss_err"], out["accum_norm_rel_err"],
+           out["accum_moment_rel_err"]) > ACCUM_TOL:
+        raise AssertionError(f"accumulation against the full batch: "
+                             f"{out} (tolerance {ACCUM_TOL})")
+    del copy_, state, m1, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_seq() -> int:
+    """train_4k's sequence length, from the port's LM shape set."""
+    from repro_torch.configs.families import lm_shapes
+    return lm_shapes()["train_4k"].dims["seq_len"]
+
+
+def train_dense(dev) -> dict:
+    """10b: chatglm3-6b at full width, TRAIN_DENSE_LAYERS of its 28
+    layers, f32 masters, bf16 compute, remat "full", AdamW: steps of
+    TRAIN_N_MICRO micro-batches of TRAIN_MICRO sequences of train_4k."""
+    import functools
+
+    from repro_torch.configs.families import lm_opt_config
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import adamw_update, opt_init
+    from repro_torch.training.train import make_train_step_accum
+
+    full = LM_CONFIGS["chatglm3-6b"]
+    info = {"checks": remat_checks(dev, full)}
+    cfg = dataclasses.replace(full, n_layers=TRAIN_DENSE_LAYERS)
+    t0 = time.perf_counter()
+    params = tf.init_master_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info.update(layers=cfg.n_layers, of_layers=full.n_layers,
+                params=cfg.param_count(), init_s=time.perf_counter() - t0,
+                weights_gb=tree_bytes(params) / 1e9)
+    batch = lm_batch(cfg.vocab_size, TRAIN_MICRO * TRAIN_N_MICRO,
+                     train_seq(), dev)
+    micro = {k: v[:TRAIN_MICRO] for k, v in batch.items()}
+    info["peak_gb_one_micro"] = {
+        pol: peak_gb(lambda: loss_and_grads(
+            params, dataclasses.replace(cfg, remat_policy=pol), micro,
+            torch.bfloat16)) for pol in ("full", "dots")}
+    opt_cfg = lm_opt_config(cfg)
+    state = opt_init(opt_cfg, params)
+    step = make_train_step_accum(
+        functools.partial(tf.loss_fn, cfg=cfg, compute_dtype=torch.bfloat16),
+        opt_cfg, TRAIN_N_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = timed_steps(step, params, state, batch, TRAIN_RUN)
+    info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return finish_train(info, cfg, step, params, state, batch, times,
+                        metrics, opt_cfg, adamw_update)
+
+
+def finish_train(info, cfg, step, params, state, batch, times, metrics,
+                 opt_cfg, update) -> dict:
+    """The numbers 10b and 10c share: losses, step time (the median of
+    the steps after the first), tokens/s, model TFLOP/s, one profiled
+    step, the optimizer alone."""
+    tokens = batch["tokens"].numel()
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"{cfg.name}: loss {metrics}")
+    step_s = statistics.median(times[1:])
+    flops = train_flops(cfg, tokens, batch["tokens"].shape[1])
+    info.update(step_s=times, step_s_median=step_s, metrics=metrics,
+                tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+                model_tflop_per_step=flops / 1e12,
+                model_tflops=flops / step_s / 1e12,
+                bf16_peak_share=flops / step_s / BF16_OPS_PER_S,
+                profile=step_profile(step, params, state, batch, step_s),
+                optimizer=optimizer_ms(opt_cfg, params, state, update))
+    # the update reads each parameter and its gradient (the parameter's
+    # dtype) and writes the parameter; it reads and writes the state
+    info["optimizer"]["update_bound_ms"] = bound(
+        3 * tree_bytes(params) + 2 * tree_bytes(state), 0)[0]
+    return info
+
+
+@contextlib.contextmanager
+def routing_tap(calls: list):
+    """Keep each MoE dispatch's ``gate_idx``, ``keep``, ``slot`` and
+    ``overflow`` in call order: the forward's layers, then the ones remat
+    recomputes in the backward (last layer first)."""
+    from repro_torch.models import layers as L
+    dispatch = L._moe_dispatch
+
+    def tapped(*a, **kw):
+        buf, r, aux = dispatch(*a, **kw)
+        calls.append({k: getattr(r, k).clone() for k in
+                      ("gate_idx", "keep", "slot", "overflow")})
+        return buf, r, aux
+
+    L._moe_dispatch = tapped
+    try:
+        yield
+    finally:
+        L._moe_dispatch = dispatch
+
+
+def train_moe(dev) -> dict:
+    """10c: dbrx-132b at full width, TRAIN_MOE_LAYERS of its 40 layers,
+    bf16 masters (f32 router), bf16 compute, remat "full", Adafactor,
+    one sequence of train_4k a step."""
+    import functools
+
+    from repro_torch.configs.families import lm_opt_config
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import adafactor_update, opt_init
+    from repro_torch.training.train import make_train_step
+
+    full = LM_CONFIGS["dbrx-132b"]
+    cfg = dataclasses.replace(full, n_layers=TRAIN_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = tf.init_master_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info = {"layers": cfg.n_layers, "of_layers": full.n_layers,
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "init_s": time.perf_counter() - t0,
+            "weights_gb": tree_bytes(params) / 1e9}
+    lp = params["layers"][0]
+    if lp["moe"]["router"].dtype != torch.float32 or \
+            lp["moe"]["w_in"].dtype != torch.bfloat16 or \
+            lp["attn_norm"]["scale"].dtype != torch.bfloat16:
+        raise AssertionError("dbrx-132b: masters not in the reference's "
+                             "dtypes")
+    opt_cfg = lm_opt_config(cfg)
+    state = opt_init(opt_cfg, params)
+    v = state["v"]
+    shapes = {"w_in": (tuple(v["layers"]["moe"]["w_in"]["vr"].shape),
+                       tuple(v["layers"]["moe"]["w_in"]["vc"].shape)),
+              "attn_norm": (tuple(v["layers"]["attn_norm"]["scale"]["vr"]
+                                  .shape),
+                            tuple(v["layers"]["attn_norm"]["scale"]["vc"]
+                                  .shape)),
+              "embed": (tuple(v["embed"]["vr"].shape),
+                        tuple(v["embed"]["vc"].shape))}
+    e, d, f, n = cfg.moe_experts, cfg.d_model, cfg.d_ff, cfg.n_layers
+    if shapes != {"w_in": ((n, e, d), (n, e, f)), "attn_norm": ((n,), (d,)),
+                  "embed": ((cfg.vocab_size,), (d,))}:
+        raise AssertionError(f"Adafactor state shapes {shapes}")
+    info["adafactor_shapes"] = shapes
+    info["adafactor_state_gb"] = tree_bytes(state) / 1e9
+    seq = train_seq()
+    batch = lm_batch(cfg.vocab_size, 1, seq, dev)
+    step = make_train_step(
+        functools.partial(tf.loss_fn, cfg=cfg, compute_dtype=torch.bfloat16),
+        opt_cfg)
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    with routing_tap(calls):
+        times, metrics = timed_steps(step, params, state, batch, 1)
+    if len(calls) != 2 * n:
+        raise AssertionError(f"dbrx-132b: {len(calls)} dispatches, want "
+                             f"{2 * n} (forward and recompute)")
+    for i in range(n):
+        fwd, rc = calls[i], calls[2 * n - 1 - i]
+        for k in ("gate_idx", "keep", "slot"):
+            if not torch.equal(fwd[k], rc[k]):
+                raise AssertionError(f"dbrx-132b layer {i}: the recomputed "
+                                     f"{k} differs from the forward's")
+    cap = int(cfg.capacity_factor * seq * cfg.moe_top_k / e) + 1
+    info["routing"] = {
+        "capacity": cap, "entries_per_layer": seq * cfg.moe_top_k,
+        "dropped_per_layer": [int((~c["keep"]).sum()) for c in calls[:n]],
+        "zeroed_slot0_per_layer": [int(c["overflow"].sum())
+                                   for c in calls[:n]],
+        "recomputed_equal": True}
+    more, more_m = timed_steps(step, params, state, batch, TRAIN_RUN - 1)
+    info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return finish_train(info, cfg, step, params, state, batch, times + more,
+                        metrics + more_m, opt_cfg, adafactor_update)
+
+
+def train_path(dev) -> dict:
+    """Phase 10: 10a, 10b and 10c, each on its own memory."""
+    out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    log(f"[10 train] memory still allocated at the start: "
+        f"{out['allocated_at_start_gb']:.2f} GB")
+    t0 = time.perf_counter()
+    out["10a"] = train_entry_point(dev)
+    out["10a"]["s"] = time.perf_counter() - t0
+    for key, fn in (("10b", train_dense), ("10c", train_moe)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[key] = fn(dev)
+        out[key]["s"] = time.perf_counter() - t0
+    return out
+
+
+def report_train(tr: dict) -> None:
+    a = tr["10a"]
+    log(f"[10a train] lm100m ({a['params'] / 1e6:.1f}M params) through "
+        f"launch.train.main: {a['steps']} steps, loss {a['loss_first']:.4f}"
+        f" -> {a['loss_last']:.4f} (mean of the first / last 10: "
+        f"{a['loss_mean_first10']:.4f} -> {a['loss_mean_last10']:.4f}); "
+        f"{a['resumed_steps']} steps resumed from step {a['steps']}: "
+        f"within {a['resume_err']:.3g} of an uninterrupted run (first run "
+        f"{a['first_err']:.3g}; tolerance {RESUME_TOL}); step "
+        f"{a['step_ms_median']:.1f} ms median, {a['tokens_per_s']:.0f} "
+        f"tokens/s; {a['s']:.1f} s")
+    for key, name, opt_name in (("10b", "chatglm3-6b", "AdamW"),
+                                ("10c", "dbrx-132b", "Adafactor")):
+        t, pr, op = tr[key], tr[key]["profile"], tr[key]["optimizer"]
+        log(f"[{key} train] {name} at full width, {t['layers']} of "
+            f"{t['of_layers']} layers ({t['params'] / 1e9:.2f} B params, "
+            f"{t['weights_gb']:.1f} GB of masters), {opt_name}: "
+            f"{t['tokens_per_step']} tokens a step; loss "
+            f"{[round(m['loss'], 4) for m in t['metrics']]}, grad_norm "
+            f"{[round(m['grad_norm'], 3) for m in t['metrics']]}; step "
+            f"{t['step_s_median']:.3f} s (steps "
+            f"{[round(x, 3) for x in t['step_s']]}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, {t['model_tflops']:.1f} "
+            f"model TFLOP/s ({t['bf16_peak_share']:.1%} of "
+            f"{BF16_OPS_PER_S / 1e12:.0f}); peak memory "
+            f"{t['peak_memory_gb']:.1f} GB; one step under the profiler: "
+            f"device busy {pr['device_busy_ms']:.1f} ms of "
+            f"{pr['wall_ms']:.1f} ms wall, idle share "
+            f"{pr['device_idle_share']:.3f}, {pr['launches']:.0f} launches "
+            f"(products {pr['matmul_ms']:.1f} ms, softmax "
+            f"{pr['softmax_ms']:.1f} ms); "
+            f"{opt_name} update {op['update_ms']:.2f} ms (bound "
+            f"{op['update_bound_ms']:.2f} ms, bytes), with the norm and clip "
+            f"{op['with_norm_and_clip_ms']:.2f} ms; {t['s']:.1f} s")
+        log(f"[{key} train] top kernels ms: "
+            f"{json.dumps(pr['top_kernels_ms'])}")
+    c = tr["10b"]["checks"]
+    rounded = {k: {p: round(v, 2) for p, v in d.items()}
+               for k, d in (("checks", c["peak_gb"]),
+                            ("depth", tr["10b"]["peak_gb_one_micro"]))}
+    log(f"[10b train] checks at {c['layers']} layers: remat full / dots vs "
+        f"none: loss within {c['full_loss_err']:.3g} / "
+        f"{c['dots_loss_err']:.3g}, gradients {c['full_grad_rel_err']:.3g} "
+        f"/ {c['dots_grad_rel_err']:.3g} of the largest (tolerance "
+        f"{REMAT_TOL}); peak GB none/full/dots "
+        f"{json.dumps(rounded['checks'])}; at {tr['10b']['layers']} layers "
+        f"full/dots {json.dumps(rounded['depth'])}"
+        f" (one micro-batch's forward and backward); accumulation x"
+        f"{TRAIN_N_MICRO} vs the full batch (f32): loss "
+        f"{c['accum_loss_err']:.3g}, norm {c['accum_norm_rel_err']:.3g}, "
+        f"first moment {c['accum_moment_rel_err']:.3g} (tolerance "
+        f"{ACCUM_TOL}); bf16 loss {c['loss_bf16']:.4f} vs f32 "
+        f"{c['loss_f32']:.4f} (tolerance {BF16_LOSS_TOL})")
+    r = tr["10c"]["routing"]
+    log(f"[10c train] routing (capacity {r['capacity']} of "
+        f"{r['entries_per_layer']} entries): dropped pairs per layer "
+        f"{r['dropped_per_layer']}, zeroed slot-0 tokens "
+        f"{r['zeroed_slot0_per_layer']}; the backward's recomputed gate_idx,"
+        f" keep and slot equal the forward's in every layer; Adafactor "
+        f"state {tr['10c']['adafactor_state_gb']:.3f} GB, shapes "
+        f"{json.dumps(tr['10c']['adafactor_shapes'])}")
+
+
 def stream_kw() -> dict:
     from repro_torch.data.synthetic import DATASETS
     ds = DATASETS["granola"]
@@ -4101,7 +4673,24 @@ def main() -> int:
     p9["launches"] = phase9_launches(p9)
     report_phase9(p9)
 
-    # phase 10: the kernels line and the result line
+    # phase 10: the LM training path, on a card freed of the worlds,
+    # indexes and weights of the earlier phases
+    del world, queries, index, service, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    t0 = time.perf_counter()
+    tr = train_path(dev)
+    tr["phase_s"] = time.perf_counter() - t0
+    tr["launches"] = counters.read()
+    report_train(tr)
+    if any(tr["launches"].values()):
+        raise AssertionError(f"training launched a retrieval or serving "
+                             f"kernel: {tr['launches']}")
+    log(f"[10 train] phase 10 in {tr['phase_s']:.1f} s; the eight "
+        f"kernels' launches: {tr['launches']} (training runs none)")
+
+    # phase 11: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -4151,7 +4740,7 @@ def main() -> int:
          "moe_path": moe, "moe_phase_s": moe_s, "rag_twin": rt,
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path, "world_digests": digest_info,
-         "phase9": p9,
+         "phase9": p9, "train_path": tr,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

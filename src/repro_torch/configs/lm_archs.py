@@ -15,9 +15,12 @@ placement of ``moe_dp_groups``.  The reference pads arctic's 56 heads (and
 starcoder2's 36, phi3's 40) with zero heads to a count its tensor-parallel
 mesh divides and slices them off before ``wo``, so the result is the same
 without them; one card has no mesh to pad for.  ``param_dtype`` is the
-``dtype`` argument of ``init_params`` here.
+dtype of the training masters (``init_master_params``); serving weights
+take the ``dtype`` argument of ``init_params``.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.transformer import TransformerConfig
 
@@ -29,11 +32,12 @@ LM_CONFIGS = {
         name="arctic-480b", n_layers=35, d_model=7168, n_heads=56,
         n_kv_heads=8, d_ff=4864, vocab_size=32000, d_head=128,
         moe_experts=128, moe_top_k=2, moe_dense_residual=True,
-        attn_block_q=_BLOCK_Q),
+        param_dtype=torch.bfloat16, attn_block_q=_BLOCK_Q),
     "dbrx-132b": TransformerConfig(
         name="dbrx-132b", n_layers=40, d_model=6144, n_heads=48,
         n_kv_heads=8, d_ff=10752, vocab_size=100352, d_head=128,
-        moe_experts=16, moe_top_k=4, attn_block_q=_BLOCK_Q),
+        moe_experts=16, moe_top_k=4, param_dtype=torch.bfloat16,
+        attn_block_q=_BLOCK_Q),
     "starcoder2-7b": TransformerConfig(
         name="starcoder2-7b", n_layers=32, d_model=4608, n_heads=36,
         n_kv_heads=4, d_ff=18432, vocab_size=49152, d_head=128,

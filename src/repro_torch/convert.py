@@ -10,7 +10,10 @@ objects makes the mapping with
 ``{f: np.asarray(getattr(obj, f)) for f in IVF_FIELDS}``
 (``COMPRESSED_IVF_FIELDS`` for a compressed index).  A transformer's
 parameters go across as the reference's nested dict of numpy arrays, with
-the per-layer leaves stacked over a leading ``n_layers`` dim.
+the per-layer leaves stacked over a leading ``n_layers`` dim, as serving
+weights (``transformer_params_*``) or as training masters
+(``transformer_master_params_from_numpy``); an optimizer state goes
+across in the reference's stacked layout (``opt_state_*``).
 """
 from __future__ import annotations
 
@@ -143,10 +146,29 @@ def transformer_params_from_numpy(tree: Mapping, cfg: TransformerConfig,
             "layers": [layer(tree["layers"], i) for i in range(n)]}
 
 
+def transformer_master_params_from_numpy(tree: Mapping,
+                                         cfg: TransformerConfig,
+                                         device=None, dtype=None) -> dict:
+    """The reference's parameter tree -> the port's training masters, with
+    the reference's per-leaf dtypes: every leaf in ``dtype`` (default
+    ``cfg.param_dtype``), the norms and ``final_norm`` too, and the MoE
+    router in f32 (``init_master_params``' layout)."""
+    dtype = cfg.param_dtype if dtype is None else dtype
+    params = transformer_params_from_numpy(tree, cfg, device, dtype)
+    params["final_norm"]["scale"] = params["final_norm"]["scale"].to(dtype)
+    for i, lp in enumerate(params["layers"]):
+        if "moe" in lp:
+            lp["moe"]["router"] = _tensor(
+                np.asarray(tree["layers"]["moe"]["router"][i], np.float32),
+                lp["moe"]["router"].device)
+    return params
+
+
 def transformer_params_to_numpy(params: Mapping) -> dict:
-    """The port's parameters -> the reference's tree of f32 numpy arrays,
-    per-layer leaves stacked over layers (the ``moe`` subtree too; its
-    router comes back as the f32 widening of the port's)."""
+    """The port's parameters, serving weights or training masters (or a
+    tree of their gradients) -> the reference's tree of f32 numpy arrays,
+    per-layer leaves stacked over layers (the ``moe`` subtree too); bf16
+    leaves widen exactly."""
     def arr(t):
         return t.float().cpu().numpy()
 
@@ -158,3 +180,26 @@ def transformer_params_to_numpy(params: Mapping) -> dict:
     return {"embed": arr(params["embed"]), "unembed": arr(params["unembed"]),
             "final_norm": {"scale": arr(params["final_norm"]["scale"])},
             "layers": stack(params["layers"])}
+
+
+def opt_state_from_numpy(tree: Mapping, device=None) -> dict:
+    """The reference's optimizer state (AdamW's ``m``, ``v``, ``step`` or
+    Adafactor's ``v`` with ``vr`` / ``vc`` / ``v`` leaves and ``step``, as
+    numpy, per-layer leaves stacked) -> the port's: the same tree, f32
+    tensors and an int32 ``step``."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, dev)
+
+    return conv(tree)
+
+
+def opt_state_to_numpy(state: Mapping) -> dict:
+    """The port's optimizer state -> the reference's tree of numpy arrays
+    (f32 moments, an int32 ``step``)."""
+    if isinstance(state, Mapping):
+        return {k: opt_state_to_numpy(v) for k, v in state.items()}
+    return state.cpu().numpy()

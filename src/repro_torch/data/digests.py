@@ -9,7 +9,10 @@ pins them and ``chip_smoke.py`` asserts them on the card.
 ``SIZES`` names the two configurations the checks cover: the quickstart
 twin's (8000 entities, d=64) and configuration 1's (100,000 entities,
 d=768, 500,000 passages), each with the granola stream of seed 1 whose
-first 400 queries the full scan serves.
+first 400 queries the full scan serves.  ``MARKOV_SIZES`` names the
+training path's Markov LM sources (``data/lm.py``), pinned the same way:
+``tests/test_torch_train_cli.py`` and ``chip_smoke.py`` phase 10a assert
+them.
 """
 from __future__ import annotations
 
@@ -51,6 +54,22 @@ PINNED = {
         "served": {"entities": "8e736e8713400d4f955e53fe0809fb42",
                    "attrs": "070ec129ed71be1c3bbd55c916200c5f",
                    "embs": "8377889f4959cd4c4e54ae655fe2a235"}},
+}
+
+#: name -> (vocab, batch, seq) of the Markov LM sources the checks cover:
+#: ``launch/train.py``'s lm100m preset at the CLI's batch and sequence, and
+#: ``examples/train_lm_torch.py``'s lm20m
+MARKOV_SIZES = {"lm100m": (8192, 8, 128), "lm20m": (4096, 8, 128)}
+
+#: the reference's digests (``repro.data.lm.MarkovLM(vocab, 2, seed=0)``'s
+#: table and its first ``sample`` from ``default_rng(1)``, numpy 2.0.2)
+MARKOV_PINNED = {
+    "lm100m": {"probs": "0c4bb113ee49e8187e6918d4be596950",
+               "tokens": "57ee0a5c0f6045cc260b633b484af4a8",
+               "labels": "dcd0da9f32f914a99470a3069a6e8a1c"},
+    "lm20m": {"probs": "ce28a9c7482f022d9cd016fa54fb2b8e",
+              "tokens": "167e09b8fa1c5fd81750f94928b72e3b",
+              "labels": "003a4fe17ed50229342b18a3840cbf71"},
 }
 
 #: ``default_rng(1).zipf(1.12, size=6000)[:4]``, the first draws of the
@@ -132,3 +151,14 @@ def first_difference(got: np.ndarray, want: np.ndarray):
         return None
     i = int(bad[0])
     return (i, g[i].item(), w[i].item())
+
+
+def markov_digests(markov_cls, size: str) -> dict[str, str]:
+    """The digests of one of ``MARKOV_SIZES``, built with the given
+    ``MarkovLM`` class (either package's), as ``train_lm`` draws its
+    first batch."""
+    vocab, batch, seq = MARKOV_SIZES[size]
+    lm = markov_cls(vocab, 2, seed=0)
+    first = lm.sample(np.random.default_rng(1), batch, seq)
+    return {"probs": md5(lm.probs), "tokens": md5(first["tokens"]),
+            "labels": md5(first["labels"])}

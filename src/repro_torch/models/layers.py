@@ -159,12 +159,15 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
 # Mixture of Experts (top-k routing, sort-based capacity dispatch)
 # ---------------------------------------------------------------------------
 
-def init_moe(g, d_model: int, d_ff: int, n_experts: int, dtype, dev) -> dict:
+def init_moe(g, d_model: int, d_ff: int, n_experts: int, dtype, dev,
+             router_dtype=None) -> dict:
     """The reference's shapes and scales, drawn from ``g`` one expert at a
     time (a full f32 draw of arctic-480b's ``[128, 7168, 4864]`` would take
-    17.9 GB).  The router is held in ``dtype`` like every other weight: the
-    reference draws it in f32 but casts it to the compute dtype before
-    use, and :func:`moe` widens it back to f32 for the routing product."""
+    17.9 GB).  The router is held in ``router_dtype`` (default ``dtype``):
+    serving holds it in the compute dtype like every other weight, since
+    the reference draws it in f32 but casts it to the compute dtype before
+    use, and :func:`moe` widens it back to f32 for the routing product;
+    training masters hold it in f32, as the reference does."""
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
 
     def experts(shape, scale):
@@ -173,7 +176,8 @@ def init_moe(g, d_model: int, d_ff: int, n_experts: int, dtype, dev) -> dict:
             w[i] = normal(g, shape, scale, dtype, dev)
         return w
 
-    return {"router": normal(g, (d_model, n_experts), s_in, dtype, dev),
+    return {"router": normal(g, (d_model, n_experts), s_in,
+                             router_dtype or dtype, dev),
             "w_in": experts((d_model, d_ff), s_in),
             "w_gate": experts((d_model, d_ff), s_in),
             "w_out": experts((d_ff, d_model), s_out)}

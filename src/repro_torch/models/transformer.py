@@ -1,29 +1,46 @@
 """Decoder-only LM transformer (dense + MoE, GQA, RoPE, SwiGLU/GeLU) for
-serving.
+serving and training.
 
-Twin of the serving part of ``src/repro/models/transformer.py``:
-``TransformerConfig``, ``init_params``, ``forward_hidden``, ``forward``,
-``prefill`` and the KV-cache pair ``init_kv_cache`` / ``decode_step``.
+Twin of ``src/repro/models/transformer.py``: ``TransformerConfig``,
+``init_params``, ``forward_hidden``, ``forward``, ``loss_fn``, ``prefill``
+and the KV-cache pair ``init_kv_cache`` / ``decode_step``.
 ``forward_hidden`` and ``forward`` return the MoE aux loss beside their
 output, as the reference's do.
 
 Parameters are a dict with the reference's names and layouts, but with one
 dict per layer in ``params["layers"]`` instead of leaves stacked over
-layers (``convert.py`` maps between the two).  They are held in the compute
-dtype: the reference casts every layer's weights, ``embed`` and ``unembed``
-to its ``compute_dtype`` at each use, which gives the same values as casting
-once at load (the MoE router too: the reference draws it in f32 and casts
-it like the rest).  ``final_norm``, which the reference does not cast,
-stays f32.  The loss and the training path are not ported.
+layers (``convert.py`` maps between the two).  Two ways to hold them:
+
+* Serving (``init_params``): every weight in the compute dtype, cast once
+  at load.  The reference casts every layer's weights, ``embed`` and
+  ``unembed`` to its ``compute_dtype`` at each use, which gives the same
+  values (the MoE router too: the reference draws it in f32 and casts it
+  like the rest).  ``final_norm``, which the reference does not cast,
+  stays f32.  ``forward_hidden`` / ``forward`` called without
+  ``compute_dtype`` use the weights as held.
+* Training (``init_master_params``): master weights in the config's
+  ``param_dtype`` (the router always f32), as the reference holds them.
+  ``forward_hidden`` / ``forward`` / ``loss_fn`` with a ``compute_dtype``
+  cast each layer's floating leaves inside the block, as the reference's
+  scanned body does, so gradients reach the masters in their own dtype;
+  ``cfg.remat`` recomputes each block in the backward
+  (``torch.utils.checkpoint``), all of it (``"full"``) or all but the
+  products without batch dims (``"dots"``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.utils import resolve_device
+
+
+REMAT_POLICIES = ("full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +63,19 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     norm_eps: float = 1e-5
     attn_block_q: int = 0          # q-block scan size (long prefill)
+    param_dtype: torch.dtype = torch.float32   # the training masters'
+    remat: bool = True             # recompute each block in the backward
+    # 'full' recomputes everything; 'dots' saves the products without
+    # batch dims (jax's dots_with_no_batch_dims_saveable)
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: {self.n_heads} heads over "
                              f"{self.n_kv_heads} KV heads")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"{self.name}: remat_policy "
+                             f"{self.remat_policy!r} not in {REMAT_POLICIES}")
 
     @property
     def is_moe(self) -> bool:
@@ -81,7 +106,7 @@ class TransformerConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: TransformerConfig, g, dtype, dev) -> dict:
+def _init_layer(cfg: TransformerConfig, g, dtype, dev, router_dtype) -> dict:
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        cfg.d_ff)
     s = d ** -0.5
@@ -96,7 +121,8 @@ def _init_layer(cfg: TransformerConfig, g, dtype, dev) -> dict:
         },
     }
     if cfg.is_moe:
-        p["moe"] = L.init_moe(g, d, f, cfg.moe_experts, dtype, dev)
+        p["moe"] = L.init_moe(g, d, f, cfg.moe_experts, dtype, dev,
+                              router_dtype)
     if not cfg.is_moe or cfg.moe_dense_residual:
         p["mlp"] = {"w_in": L.normal(g, (d, f), s, dtype, dev),
                     "w_out": L.normal(g, (f, d), f ** -0.5, dtype, dev)}
@@ -105,26 +131,42 @@ def _init_layer(cfg: TransformerConfig, g, dtype, dev) -> dict:
     return p
 
 
-def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
-                dtype=torch.bfloat16) -> dict:
-    """Random weights of the reference's shapes and scales (normal draws
-    from a ``torch.Generator`` seeded with ``seed``, on ``device``; they
-    are not the reference's ``jax.random`` draws), held in ``dtype``."""
+def _init(cfg: TransformerConfig, seed, device, dtype, router_dtype,
+          final_norm_dtype) -> dict:
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     return {
         "embed": L.normal(g, (cfg.vocab_size, d), d ** -0.5, dtype, dev),
         "unembed": L.normal(g, (d, cfg.vocab_size), d ** -0.5, dtype, dev),
-        "final_norm": {"scale": torch.ones(d, dtype=torch.float32,
+        "final_norm": {"scale": torch.ones(d, dtype=final_norm_dtype,
                                            device=dev)},
-        "layers": [_init_layer(cfg, g, dtype, dev)
+        "layers": [_init_layer(cfg, g, dtype, dev, router_dtype)
                    for _ in range(cfg.n_layers)],
     }
 
 
+def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
+                dtype=torch.bfloat16) -> dict:
+    """Serving weights: random draws of the reference's shapes and scales
+    (normal draws from a ``torch.Generator`` seeded with ``seed``, on
+    ``device``; they are not the reference's ``jax.random`` draws), held in
+    ``dtype``, ``final_norm`` in f32."""
+    return _init(cfg, seed, device, dtype, dtype, torch.float32)
+
+
+def init_master_params(cfg: TransformerConfig, seed: int = 0, device=None,
+                       dtype=None) -> dict:
+    """Training masters: the same draws as :func:`init_params`, held in
+    ``dtype`` (default ``cfg.param_dtype``), the norms and ``final_norm``
+    too, and the MoE router in f32, as the reference's ``init_params``
+    holds them (``src/repro/models/layers.py:258``)."""
+    dtype = cfg.param_dtype if dtype is None else dtype
+    return _init(cfg, seed, device, dtype, torch.float32, dtype)
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (prefill, training) and the loss
 # ---------------------------------------------------------------------------
 
 def _layer_fn(cfg: TransformerConfig, x, positions, lp, kv_cache=None,
@@ -149,25 +191,91 @@ def _layer_fn(cfg: TransformerConfig, x, positions, lp, kv_cache=None,
     return x + h, cache, aux
 
 
-def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig):
-    """tokens [B,S] -> (final-norm hidden states [B,S,Dm] in params' dtype,
-    the MoE aux loss summed over layers, an f32 scalar).  The MoE layers
-    dispatch in ``cfg.moe_dp_groups`` groups."""
+def _cast(tree: dict, dtype) -> dict:
+    """A layer's parameters with every floating leaf in ``dtype``."""
+    return {k: _cast(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def _train_block(cfg: TransformerConfig, compute_dtype, x, positions, lp):
+    """One block on master weights, cast to ``compute_dtype`` inside it (so
+    a recomputed block casts them again) -> (x, aux)."""
+    x, _, aux = _layer_fn(cfg, x, positions, _cast(lp, compute_dtype),
+                          dp_groups=cfg.moe_dp_groups)
+    return x, aux
+
+
+# the products without batch dims: every ``x @ W`` of attention, the MLP
+# and the router; attention's einsums and the experts' bmm have batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_block(cfg: TransformerConfig, compute_dtype, x, positions, lp):
+    block = functools.partial(_train_block, cfg, compute_dtype)
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block(x, positions, lp)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(block, x, positions, lp, use_reentrant=False, **kw)
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                   compute_dtype=None):
+    """tokens [B,S] -> (final-norm hidden states [B,S,Dm], the MoE aux loss
+    summed over layers, an f32 scalar).  The MoE layers dispatch in
+    ``cfg.moe_dp_groups`` groups.
+
+    Without ``compute_dtype`` the weights are used as held (serving) and
+    the states are in their dtype.  With it, the embedded rows and each
+    layer's floating leaves are cast to ``compute_dtype`` (inside the
+    block, which ``cfg.remat`` recomputes in the backward); the rows are
+    gathered before the cast, so the embedding's gradient adds in the
+    masters' dtype."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, _, a = _layer_fn(cfg, x, positions, lp,
-                            dp_groups=cfg.moe_dp_groups)
+        if compute_dtype is None:
+            x, _, a = _layer_fn(cfg, x, positions, lp,
+                                dp_groups=cfg.moe_dp_groups)
+        else:
+            x, a = _run_block(cfg, compute_dtype, x, positions, lp)
         aux = aux + a
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
-    """tokens [B,S] -> (logits [B,S,V] in params' dtype, aux)."""
-    x, aux = forward_hidden(params, tokens, cfg)
-    return x @ params["unembed"], aux
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            compute_dtype=None):
+    """tokens [B,S] -> (logits [B,S,V], aux); ``compute_dtype`` as in
+    :func:`forward_hidden` (it casts ``unembed`` too)."""
+    x, aux = forward_hidden(params, tokens, cfg, compute_dtype)
+    w = params["unembed"]
+    return x @ (w if compute_dtype is None else w.to(compute_dtype)), aux
+
+
+def loss_fn(params, batch, cfg: TransformerConfig,
+            compute_dtype=torch.bfloat16, aux_weight: float = 0.01):
+    """Next-token cross-entropy of ``batch = {tokens [B,S], labels [B,S]}``
+    (int ids) on master weights: f32 logits, ``logsumexp`` minus the gold
+    logit, the mean, plus ``aux_weight`` times the MoE aux loss ->
+    ``(loss, {"ce", "aux"})``."""
+    logits, aux = forward(params, batch["tokens"], cfg, compute_dtype)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, tokens: torch.Tensor,

@@ -1,1 +1,3 @@
-"""Training-side helpers the serving path reuses (int8 quantization)."""
+"""Training: the optimizers (AdamW, Adafactor), the train step with
+gradient accumulation, the straggler watchdog, and the int8 quantization
+the serving path reuses."""

@@ -30,7 +30,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
        ROOT / "examples" / "async_serving_torch.py",
        ROOT / "examples" / "agentic_multihop_torch.py",
-       ROOT / "examples" / "rag_serving_torch.py"]
+       ROOT / "examples" / "rag_serving_torch.py",
+       ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -195,6 +196,38 @@ def test_moe_generator_and_rag_twin_refuse_cpu_fallback(monkeypatch):
                                tf.init_kv_cache(cfg, 2, 4, device="cpu"),
                                torch.zeros(2, dtype=torch.int32), 0, cfg)
     assert logits.shape == (2, 64)
+
+
+def test_training_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    import importlib.util
+
+    from repro_torch.configs.families import lm_smoke
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tf.TransformerConfig(name="t", n_layers=1, d_model=16, n_heads=2,
+                               n_kv_heads=1, d_ff=32, vocab_size=64,
+                               d_head=8, remat=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_master_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train_lm(cfg, 1, 2, 8, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--preset", "lm100m", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "chatglm3-6b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_smoke(LM_CONFIGS["dbrx-132b"])
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twin.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    # asked for explicitly, the CPU works
+    assert tf.init_master_params(cfg, device="cpu")["embed"].device.type \
+        == "cpu"
+    assert len(train.train_lm(cfg, 1, 2, 8, None, device="cpu")) == 1
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
