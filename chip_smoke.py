@@ -159,7 +159,33 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    step's busy time and idle share, and the optimizer alone.  The eight
    kernels' counts are set to 0 before phase 10 and must read 0 after:
    training launches none of them;
-11. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
+11. the registry and the remaining model families, on a card freed of
+   phase 10's memory, while three worker processes draw the large numpy
+   batches (seed 0): (a) the registry's eleven archs, each of the ten
+   trainable ones through ``launch.train.main --arch`` for 3 steps on the
+   card (finite losses), ``--arch has-rag`` raising ``ValueError``, the
+   ``ClickLog`` / ``SessionLog`` / ``make_graph_batch`` digests, and the
+   recsys and DimeNet smokes' forward, loss and gradients on the card
+   within ``SMOKE_TOL`` of the CPU's on the same weights (has-rag's smoke
+   ids and accept equal); (d) the batched HaS step at ``HasRagConfig``'s
+   widths over 12,582,912 random rows (f32, int8 replica, scales;
+   merge_chunks 48): empty caches first, filled with that batch's full
+   scan, then a batch repeating half of it (accepts and rejects), the
+   rejected ids against ``chunked_flat_search`` up to proven near-ties,
+   merge_chunks 0 equal to 48 at 1,572,864 rows; (b) dlrm-rm2, deepfm
+   and autoint at full width: one train_batch (65,536) AdamW step,
+   serve_p99 (512) and serve_bulk (262,144) forwards, retrieval_cand (1 x
+   1,000,448, top-100, ids against a GEMV and a stable sort), and
+   bert4rec's serve_p99 and its train_batch through
+   ``make_train_step_accum`` in micro-batches of 256 sequences; (c) one
+   DimeNet AdamW step at full width on full_graph_sm, molecule and
+   minibatch_lg at their block dims (self-loops masked).  The parts run
+   in the order a, d, c, b, as their host draws are ready.  Each shape
+   reports its time, busy time, idle share, launches, peak memory and
+   bound, and each train step the optimizer alone against its bytes
+   bound.  The eight kernels' counts are set to 0 before phase 11 and
+   must read 0 after;
+12. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
    recsys kernels' on their own: ``decode_attention`` phases 6 and 6b),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -174,6 +200,7 @@ import copy
 import dataclasses
 import gc
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
@@ -307,6 +334,28 @@ ACCUM_TOL = 1e-3
 # bf16 against f32 compute on the same masters: the loss (ln 65024 = 11.1;
 # measured 1.0e-4 apart)
 BF16_LOSS_TOL = 0.05
+
+
+# phase 11: the registry and the remaining model families
+P11_STEPS = 3                  # launch.train.main steps of each arch (11a)
+# the card against the CPU at the smoke configs (f32): forward, loss and
+# every gradient leaf within this of the leaf's largest (sums in other
+# orders; DimeNet's index_add adds with atomics, in another order each run)
+SMOKE_TOL = 1e-4
+# serve_bulk's batch, drawn once per field set; train_batch and serve_p99
+# are its first 65,536 and 512 rows
+RECSYS_BULK = 262144
+BERT_MICRO = 256               # bert4rec sequences a micro-batch (5.5 GB of f32 logits)
+GNN_RUN = ("full_graph_sm", "molecule", "minibatch_lg")
+# has-rag's corpus rows, 3 x 2^22: the f32 rows, the int8 replica and the
+# scales take 3,844 B a row, 48.4 GB (the paper's 49.2M rows need 189 GB)
+HASRAG_ROWS = 12_582_912
+HASRAG_CHUNKS = 48             # merge_chunks: 262,144 columns a chunk
+HASRAG_SORT_ROWS = 48 << 15    # merge_chunks 0 (whole-row sort) vs 48 here
+# where two top-k lists part, the two rows' f64 scores lie within this
+# (relative): f32 sums of up to 768 products in other orders
+NEAR_TIE_REL = 1e-5
+PROFILE_TRIES = 3              # traces of a short call; the fullest is kept
 
 
 def log(*a):
@@ -3911,16 +3960,26 @@ def lm_batch(vocab: int, n: int, seq: int, dev) -> dict:
 
 
 def loss_and_grads(params, cfg, batch, compute_dtype):
-    """The loss and the gradients of every master leaf (a list), one
-    forward and backward; the parameters are released after."""
+    """The transformer's loss and the gradients of every master leaf."""
+    import functools
+
     from repro_torch.models import transformer as tf
+    return loss_grads(functools.partial(tf.loss_fn, cfg=cfg,
+                                        compute_dtype=compute_dtype),
+                      params, batch)
+
+
+def loss_grads(loss_fn, params, batch) -> tuple:
+    """The loss and every parameter leaf's gradient (a list; zeros where
+    the loss does not reach a leaf), one forward and backward; the
+    parameters are released after."""
     from repro_torch.training.optimizer import leaves
     ps = [t for _, parts in leaves(params) for t in parts]
     for t in ps:
         t.requires_grad_(True)
-    loss, _ = tf.loss_fn(params, batch, cfg, compute_dtype=compute_dtype)
+    loss, _ = loss_fn(params, batch)
     loss.backward()
-    grads = [t.grad for t in ps]
+    grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in ps]
     for t in ps:
         t.grad = None
         t.requires_grad_(False)
@@ -4407,6 +4466,625 @@ def report_train(tr: dict) -> None:
         f"{json.dumps(tr['10c']['adafactor_shapes'])}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the registry and the remaining model families
+# ---------------------------------------------------------------------------
+
+def host_draw(kind: str, kw: dict) -> dict:
+    """One of phase 11's large numpy draws, in a worker process: a
+    ``ClickLog`` batch or a ``make_graph_batch`` block (the port's)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    if kind == "click":
+        from repro_torch.data.recsys import ClickLog
+        return ClickLog(**kw["init"]).sample(kw["batch"])
+    from repro_torch.data.graph import make_graph_batch
+    return make_graph_batch(**kw)
+
+
+def start_draws(pool) -> dict:
+    """Submit the recsys bulk batches (dlrm-rm2's 26 fields and dense
+    features; the 39 fields deepfm and autoint share) and the minibatch_lg
+    block, all from seed 0."""
+    from repro_torch.configs.recsys_archs import RECSYS_CONFIGS
+    out = {}
+    for name in ("dlrm-rm2", "deepfm"):
+        cfg = RECSYS_CONFIGS[name]
+        out[name] = pool.submit(host_draw, "click", {
+            "init": dict(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense,
+                         seed=0), "batch": RECSYS_BULK})
+    out["minibatch_lg"] = pool.submit(host_draw, "graph",
+                                      gnn_batch_kw("minibatch_lg"))
+    return out
+
+
+def gnn_batch_kw(shape: str) -> dict:
+    """``make_graph_batch`` kwargs of a GNN shape at its block dims, the
+    triplet cap per edge as the shape gives it (``n_triplets // n_edges``)."""
+    from repro_torch.configs.dimenet import GNN_SHAPES
+    d = GNN_SHAPES[shape].dims
+    return dict(n_nodes=d["n_nodes"], n_edges=d["n_edges"],
+                d_feat=d["d_feat"], n_classes=d.get("n_classes", 1),
+                t_max=d["n_triplets"],
+                cap_per_edge=d["n_triplets"] // d["n_edges"], seed=0)
+
+
+def smoke_vs_cpu(dev, arch: str) -> dict:
+    """The arch's smoke (config, weights, batch) on the CPU and a copy on
+    the card: forward, loss and gradients of both, within SMOKE_TOL."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import recsys as rs
+    spec = get_arch(arch)
+    model = dn if spec.family == "gnn" else rs
+    cfg, params, _, _, batch = spec.make_smoke(device="cpu")
+    lossf = functools.partial(model.loss_fn, cfg=cfg)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(where), params)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            fwd = model.forward(p, b, cfg)
+        out[where] = (fwd, *loss_grads(lossf, p, b))
+    (f_cpu, l_cpu, g_cpu), (f_dev, l_dev, g_dev) = out["cpu"], out["cuda"]
+    info = {"forward_rel_err": rel_err([f_dev.cpu()], [f_cpu]),
+            "loss_cpu": float(l_cpu), "loss_cuda": float(l_dev),
+            "grad_rel_err": rel_err([g.cpu() for g in g_dev], g_cpu)}
+    info["loss_rel_err"] = abs(info["loss_cuda"] - info["loss_cpu"]) \
+        / abs(info["loss_cpu"])
+    worst = max(info["forward_rel_err"], info["loss_rel_err"],
+                info["grad_rel_err"])
+    if not worst <= SMOKE_TOL:
+        raise AssertionError(f"{arch}: the card's smoke differs from the "
+                             f"CPU's: {info}")
+    return info
+
+
+def registry_path(dev) -> dict:
+    """11a: the registry's eleven archs; each trainable one through
+    ``launch.train.main`` on the card; has-rag raising; the recsys and
+    graph digests; the new families' smokes card against CPU."""
+    from repro_torch.configs import all_archs, get_arch
+    from repro_torch.data import digests
+    from repro_torch.data.graph import make_graph_batch
+    from repro_torch.data.recsys import ClickLog, SessionLog
+    from repro_torch.launch import train
+
+    got = {s: digests.recsys_digests(ClickLog, SessionLog, s)
+           for s in digests.RECSYS_SIZES}
+    bad = digests.mismatches(got, digests.RECSYS_PINNED)
+    got = {s: digests.graph_digests(make_graph_batch, s)
+           for s in digests.GRAPH_SIZES}
+    bad += digests.mismatches(got, digests.GRAPH_PINNED)
+    if bad:
+        raise AssertionError(f"recsys / graph digests differ from the "
+                             f"reference's (numpy {np.__version__}): {bad}")
+    archs = all_archs()
+    trainable = [a for a in archs if get_arch(a).family != "rag"]
+    if len(archs) != 11 or len(trainable) != 10:
+        raise AssertionError(f"the registry holds {archs}")
+    out = {"archs": archs, "cli": {}}
+    for arch in trainable:
+        t0 = time.perf_counter()
+        losses, _ = run_captured(train.main, ["--arch", arch, "--steps",
+                                              str(P11_STEPS)])
+        if len(losses) != P11_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"--arch {arch}: losses {losses}")
+        out["cli"][arch] = {"losses": losses,
+                            "s": time.perf_counter() - t0}
+    try:
+        train.main(["--arch", "has-rag", "--steps", "1"])
+    except ValueError as e:
+        out["has_rag_raises"] = str(e)
+    else:
+        raise AssertionError("--arch has-rag did not raise")
+    out["smoke_vs_cpu"] = {a: smoke_vs_cpu(dev, a) for a in trainable
+                           if get_arch(a).family in ("recsys", "gnn")}
+    cfg, fn, args = get_arch("has-rag").make_smoke(device="cpu")
+    want = fn(*args)
+    got = fn(*[a.to(dev) for a in args])
+    for w, g in zip(want[:2], got[:2]):
+        if not torch.equal(w, g.cpu()):
+            raise AssertionError("has-rag smoke: card ids or accept differ "
+                                 "from the CPU's")
+    out["has_rag_smoke_equal"] = True
+    return out
+
+
+def mlp_flops(dims) -> int:
+    """Multiply-adds of an MLP chain, as operations (2 a MAC)."""
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def recsys_forward_work(cfg, b: int) -> tuple[float, float]:
+    """(bytes, operations) a forward of ``b`` examples needs: the rows it
+    gathers, its ids and dense inputs, the dense weights and the outputs
+    once; the products and the interactions."""
+    f, d = cfg.n_sparse, cfg.embed_dim
+    if cfg.kind == "bert4rec":
+        s, v = cfg.seq_len, cfg.total_vocab
+        n_bytes = b * s * (4 * d + 8) + v * d * 4 + b * s * v * 4
+        per_block = 4 * 2 * s * d * d + 2 * 2 * s * s * d \
+            + 2 * 2 * s * d * 4 * d
+        return n_bytes, b * (cfg.n_blocks * per_block + 2 * s * d * v)
+    n_bytes = b * (f * d * 4 + f * 4 + cfg.n_dense * 4 + 4 + 4)
+    if cfg.kind == "dlrm":
+        fi = f + 1
+        ops = mlp_flops((cfg.n_dense,) + cfg.bot_mlp) \
+            + fi * (fi - 1) * d \
+            + mlp_flops((fi * (fi - 1) // 2 + cfg.bot_mlp[-1],)
+                        + cfg.top_mlp)
+    elif cfg.kind == "deepfm":
+        n_bytes += b * f * 4                       # first-order weights
+        ops = 4 * f * d + mlp_flops((f * d,) + cfg.mlp + (1,))
+    else:
+        h, da = cfg.n_heads, cfg.d_attn
+        ops, d_in = 2 * f * h * da, d
+        for _ in range(cfg.n_attn_layers):
+            ops += 4 * 2 * f * d_in * h * da + 2 * 2 * h * f * f * da
+            d_in = h * da
+    return n_bytes, b * ops
+
+
+def call_profile(fn, timer, reps: int) -> dict:
+    """A call's time (CUDA events, median of ``reps``, L2 flushed), its
+    wall time (host clock to a synchronize, median of 5), one profiled
+    call's device busy time, idle share and launches (the trace with the
+    most kernel records of PROFILE_TRIES: CUPTI can drop a short call's),
+    and its peak memory above what was allocated before."""
+    fn()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    counts, times = {}, {}
+    for _ in range(PROFILE_TRIES if wall < 100 else 1):
+        c = {}
+        t = device_times(fn, 1, warm=False, counts=c)
+        if sum(c.values()) > sum(counts.values()):
+            counts, times = c, t
+    busy = sum(times.values()) / 1e3
+    return {"ms": timer(fn, reps=reps, warm=1), "wall_ms": wall,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+            "launches": sum(counts.values()), "peak_gb": peak_gb(fn),
+            "top_kernels_ms": top_ops(times, 4, 1e3)}
+
+
+def train_record(step, params, state, batch, opt_cfg, work, n_params,
+                 batch_bytes, steps: int = 2) -> dict:
+    """``steps`` timed steps (host clock to a synchronize; the last is the
+    step time), one profiled step, the optimizer alone and the bounds:
+    the step's (3 x the forward's operations; reading and writing each
+    parameter and both moments, 24 B a parameter, and the batch once) and
+    the update's (28 B a parameter, the gradient read too)."""
+    from repro_torch.training.optimizer import adamw_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = timed_steps(step, params, state, batch, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"train: loss {metrics}")
+    rec = {"step_s": times, "step_ms": times[-1] * 1e3, "metrics": metrics,
+           "peak_memory_gb": peak,
+           "profile": step_profile(step, params, state, batch, times[-1]),
+           "optimizer": optimizer_ms(opt_cfg, params, state, adamw_update)}
+    rec["bound_ms"], rec["bound_by"] = bound(24 * n_params + batch_bytes,
+                                             3 * work)
+    rec["optimizer"]["update_bound_ms"] = bound(
+        3 * tree_bytes(params) + 2 * tree_bytes(state), 0)[0]
+    return rec
+
+
+def batch_rows(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def ctr_arch(dev, timer, name: str, data: dict) -> dict:
+    """11b for one CTR arch at full width: init, one train_batch AdamW
+    step (and its record), serve_p99 and serve_bulk forwards, the
+    retrieval_cand top-100 against an independent GEMV and stable sort."""
+    import functools
+
+    from repro_torch.configs.families import (adamw_step, recsys_shapes,
+                                              to_device)
+    from repro_torch.configs.recsys_archs import RECSYS_CONFIGS
+    from repro_torch.models import recsys as rs
+    from repro_torch.training.optimizer import opt_init
+
+    cfg, shapes = RECSYS_CONFIGS[name], recsys_shapes()
+    t0 = time.perf_counter()
+    params = rs.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info = {"params": cfg.param_count(), "init_s": time.perf_counter() - t0,
+            "weights_gb": tree_bytes(params) / 1e9,
+            "table_rows": rs.padded_vocab(cfg)}
+    bulk = to_device(data, dev)
+    opt_cfg, step = adamw_step(functools.partial(rs.loss_fn, cfg=cfg))
+    state = opt_init(opt_cfg, params)
+    b = shapes["train_batch"].dims["batch"]
+    train_b = batch_rows(bulk, b)
+    info["train_batch"] = train_record(
+        step, params, state, train_b, opt_cfg,
+        recsys_forward_work(cfg, b)[1], cfg.param_count(),
+        sum(tree_bytes(v) for v in train_b.values()))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape in ("serve_p99", "serve_bulk"):
+        b = shapes[shape].dims["batch"]
+        sb = batch_rows(bulk, b)
+        with torch.no_grad():
+            out = rs.forward(params, sb, cfg)
+            if tuple(out.shape) != (b,) or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} {shape}: {tuple(out.shape)}")
+            rec = call_profile(lambda: rs.forward(params, sb, cfg), timer,
+                               reps=30 if b <= 512 else 5)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            *recsys_forward_work(cfg, b))
+        info[shape] = rec
+    info["retrieval_cand"] = retrieval_cand(dev, timer, cfg, params,
+                                            shapes["retrieval_cand"].dims)
+    return info
+
+
+def retrieval_cand(dev, timer, cfg, params, dims) -> dict:
+    """One query against the first ``n_candidates`` table rows, top-100;
+    the ids against ``torch.mv`` and a stable sort, a difference allowed
+    only at a near-tie (the two rows' f64 scores within NEAR_TIE_REL)."""
+    from repro_torch.models import recsys as rs
+    c, k = dims["n_candidates"], 100
+    cands = params["table"][:c]
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((dims["batch"], cfg.embed_dim), generator=g, device=dev)
+    batch = {"query": q, "candidates": cands}
+    with torch.no_grad():
+        vals, idx = rs.retrieval_score(params, batch, cfg, top_k=k)
+        ind = torch.sort(torch.mv(cands, q[0]), descending=True,
+                         stable=True).indices[:k]
+        rec = call_profile(lambda: rs.retrieval_score(params, batch, cfg,
+                                                      top_k=k), timer, 30)
+    s64 = cands.double() @ q[0].double()
+    diff = (idx[0] != ind).nonzero().flatten()
+    worst = 0.0
+    for p in diff.tolist():
+        a, b = s64[idx[0, p]], s64[ind[p]]
+        worst = max(worst, float((a - b).abs() / a.abs()))
+    if worst > NEAR_TIE_REL:
+        raise AssertionError(f"retrieval_cand: ids differ from the GEMV's "
+                             f"beyond a near-tie ({worst:.3g})")
+    rec.update(ids_equal=not len(diff), near_ties=len(diff),
+               near_tie_worst_rel=worst, candidates=c)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        c * cfg.embed_dim * 4 + cfg.embed_dim * 4 + k * 12,
+        2 * c * cfg.embed_dim)
+    return rec
+
+
+def bert4rec_path(dev, timer) -> dict:
+    """11b for bert4rec at full width: serve_p99 whole, and the
+    train_batch AdamW step through ``make_train_step_accum`` in
+    micro-batches of BERT_MICRO sequences (the logits are 21.5 MB a
+    sequence in f32)."""
+    import functools
+
+    from repro_torch.configs.families import recsys_shapes, to_device
+    from repro_torch.configs.recsys_archs import RECSYS_CONFIGS
+    from repro_torch.data.recsys import SessionLog
+    from repro_torch.models import recsys as rs
+    from repro_torch.training.optimizer import OptConfig, opt_init
+    from repro_torch.training.train import make_train_step_accum
+
+    cfg, shapes = RECSYS_CONFIGS["bert4rec"], recsys_shapes()
+    params = rs.init_params(cfg, seed=0, device=dev)
+    info = {"params": cfg.param_count(),
+            "weights_gb": tree_bytes(params) / 1e9,
+            "table_rows": rs.padded_vocab(cfg)}
+    sessions = SessionLog(cfg.total_vocab, seed=0)
+    b = shapes["serve_p99"].dims["batch"]
+    sb = to_device(sessions.sample(b, cfg.seq_len), dev)
+    with torch.no_grad():
+        out = rs.forward(params, sb, cfg)
+        if tuple(out.shape) != (b, cfg.seq_len, cfg.total_vocab) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"bert4rec serve_p99: {tuple(out.shape)}")
+        del out
+        rec = call_profile(lambda: rs.forward(params, sb, cfg), timer, 5)
+    rec["bound_ms"], rec["bound_by"] = bound(*recsys_forward_work(cfg, b))
+    info["serve_p99"] = rec
+    del sb
+    torch.cuda.empty_cache()
+    b = shapes["train_batch"].dims["batch"]
+    t0 = time.perf_counter()
+    tb = to_device(sessions.sample(b, cfg.seq_len), dev)
+    info["train_draw_s"] = time.perf_counter() - t0
+    opt_cfg = OptConfig(name="adamw")
+    state = opt_init(opt_cfg, params)
+    lossf = functools.partial(rs.loss_fn, cfg=cfg)
+    # a short accumulation first (the kernels' first calls), then one
+    # timed step of the whole batch
+    make_train_step_accum(lossf, opt_cfg, 2)(params, state,
+                                             batch_rows(tb, 2 * BERT_MICRO))
+    step = make_train_step_accum(lossf, opt_cfg, b // BERT_MICRO)
+    info["micro_batch"], info["n_micro"] = BERT_MICRO, b // BERT_MICRO
+    info["train_batch"] = train_record(
+        step, params, state, tb, opt_cfg, recsys_forward_work(cfg, b)[1],
+        cfg.param_count(), sum(tree_bytes(v) for v in tb.values()), steps=1)
+    return info
+
+
+def recsys_path(dev, timer, draws) -> dict:
+    """11b: dlrm-rm2, deepfm and autoint (the last two on one draw), then
+    bert4rec, each on memory freed of the one before."""
+    out = {}
+    for name, key in (("dlrm-rm2", "dlrm-rm2"), ("deepfm", "deepfm"),
+                      ("autoint", "deepfm")):
+        t0 = time.perf_counter()
+        data = draws[key].result()
+        wait = time.perf_counter() - t0
+        out[name] = ctr_arch(dev, timer, name, data)
+        out[name]["draw_wait_s"] = wait
+        out[name]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["bert4rec"] = bert4rec_path(dev, timer)
+    out["bert4rec"]["s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_work(cfg, dims) -> tuple[float, float]:
+    """(bytes, operations) of one DimeNet forward at a shape's block
+    dims: the inputs once; the embedding and the blocks' products."""
+    n, e, t = dims["n_nodes"], dims["n_edges"], dims["n_triplets"]
+    d, nb, sr = cfg.d_hidden, cfg.n_bilinear, cfg.n_spherical * cfg.n_radial
+    n_bytes = n * (cfg.d_feat + 3 + 2) * 4 + e * 9 + t * 9
+    ops = 2 * (n * cfg.d_feat * d + e * cfg.n_radial * d + e * 3 * d * d)
+    per = 2 * (t * d * d + t * sr * nb + t * nb * d * d + 3 * e * d * d
+               + n * d * cfg.n_targets) + t * nb * d
+    return n_bytes, ops + cfg.n_blocks * per
+
+
+def gnn_path(dev, draws) -> dict:
+    """11c: one DimeNet AdamW step at full width (6 blocks, d 128, 8
+    bilinear, 7 x 6 bases) on full_graph_sm, molecule and minibatch_lg at
+    their block dims.  Self-loop edges (``random_graph`` draws them, as the
+    reference's does) are masked before the step: a zero-length edge k->j
+    drives the reference's upward Bessel recurrence at its 1e-4 clamp to
+    ~1e21 (``tests/test_torch_dimenet.py::test_self_loop_edges_blow_up_
+    in_both_packages``).  The loss on the unmasked batch is recorded as
+    the card's witness of that fault."""
+    import functools
+
+    from repro_torch.configs.dimenet import GNN_SHAPES, _cfg_for
+    from repro_torch.configs.families import adamw_step, to_device
+    from repro_torch.data.graph import make_graph_batch
+    from repro_torch.models import dimenet as dn
+    from repro_torch.training.optimizer import opt_init
+
+    out = {}
+    for shape in GNN_RUN:
+        t0 = time.perf_counter()
+        dims = GNN_SHAPES[shape].dims
+        data = draws[shape].result() if shape in draws \
+            else make_graph_batch(**gnn_batch_kw(shape))
+        if shape == "molecule":
+            data["graph_ids"] = (np.arange(dims["n_nodes"])
+                                 // (dims["n_nodes"] // dims["n_graphs"])
+                                 ).astype(np.int32)
+            data["targets"] = np.random.default_rng(1).normal(
+                size=dims["n_graphs"]).astype(np.float32)
+        batch = to_device(data, dev)
+        cfg = _cfg_for(shape)
+        params = dn.init_params(cfg, seed=0, device=dev)
+        with torch.no_grad():
+            unmasked_loss = float(dn.loss_fn(params, batch, cfg)[0])
+        loops = batch["edge_src"] == batch["edge_dst"]
+        batch["edge_mask"] &= ~loops
+        opt_cfg, step = adamw_step(functools.partial(dn.loss_fn, cfg=cfg))
+        state = opt_init(opt_cfg, params)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_bytes, work = gnn_work(cfg, dims)
+        rec = train_record(step, params, state, batch, opt_cfg, work,
+                           cfg.param_count(), n_bytes)
+        rec.update(params=cfg.param_count(), task=cfg.task,
+                   self_loops_masked=int(loops.sum()),
+                   unmasked_loss=unmasked_loss,
+                   triplets=int(batch["tri_mask"].sum()), setup_s=setup_s,
+                   s=time.perf_counter() - t0)
+        out[shape] = rec
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def has_rag_path(dev, timer) -> dict:
+    """11d: the batched HaS step at HasRagConfig's widths over HASRAG_ROWS
+    random rows (f32 corpus, int8 replica, scales), merge_chunks
+    HASRAG_CHUNKS.  Batch 0 runs on empty caches (all rejected) and fills
+    them with its full-scan results; batch 1 repeats half of batch 0's
+    queries with noise and half fresh ones.  The rejected rows' ids must
+    equal ``chunked_flat_search`` up to proven near-ties; merge_chunks 0
+    and HASRAG_CHUNKS must agree exactly on the first HASRAG_SORT_ROWS
+    rows."""
+    import functools
+
+    from repro_torch.configs.has_rag import (HasRagConfig,
+                                             has_retrieval_step,
+                                             quantize_rows)
+    from repro_torch.retrieval.flat import chunked_flat_search
+    cfg = HasRagConfig()
+    n, d, k, b = HASRAG_ROWS, cfg.d, cfg.k, cfg.query_batch
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    corpus = torch.randn((n, d), generator=g, device=dev)
+    codes = torch.empty((n, d), dtype=torch.int8, device=dev)
+    scale = torch.empty(n, device=dev)
+    for lo in range(0, n, 1 << 20):
+        codes[lo:lo + (1 << 20)], scale[lo:lo + (1 << 20)] = \
+            quantize_rows(corpus[lo:lo + (1 << 20)])
+    doc_emb = torch.zeros((cfg.doc_cap, d), device=dev)
+    doc_ids = torch.full((cfg.doc_cap,), -1, dtype=torch.int32, device=dev)
+    q_ids = torch.full((cfg.h_max, k), -1, dtype=torch.int32, device=dev)
+    q_valid = torch.zeros(cfg.h_max, dtype=torch.bool, device=dev)
+    q0 = torch.randn((b, d), generator=g, device=dev)
+    torch.cuda.synchronize()
+    info = {"rows": n, "merge_chunks": HASRAG_CHUNKS,
+            "store_gb": (tree_bytes([corpus, codes, scale])) / 1e9,
+            "setup_s": time.perf_counter() - t0}
+    step = functools.partial(has_retrieval_step, k=k, tau=cfg.tau,
+                             merge_chunks=HASRAG_CHUNKS)
+    with torch.no_grad():
+        ids0, acc0, _ = step(corpus, codes, scale, doc_emb, doc_ids, q_ids,
+                             q_valid, q0)
+        if acc0.any():
+            raise AssertionError("has-rag: a query accepted on empty caches")
+        q_ids[:b], q_valid[:b] = ids0, True
+        uniq = torch.unique(ids0.flatten())
+        doc_ids[:len(uniq)] = uniq.int()
+        doc_emb[:len(uniq)] = corpus[uniq.long()]
+        q1 = torch.randn((b, d), generator=g, device=dev)
+        q1[:b // 2] = q0[:b // 2] + 0.05 * q1[:b // 2]
+        args = (corpus, codes, scale, doc_emb, doc_ids, q_ids, q_valid, q1)
+        ids, acc, best = step(*args)
+        rec = call_profile(lambda: step(*args), timer, 5)
+        rej = (~acc).nonzero().flatten()
+        _, want = chunked_flat_search(corpus, q1[rej], k)
+        diff = (ids[rej] != want).nonzero()
+        worst = 0.0
+        for r, c in diff.tolist():
+            qq = q1[rej[r]].double()
+            a = corpus[ids[rej[r], c].long()].double() @ qq
+            w = corpus[want[r, c].long()].double() @ qq
+            worst = max(worst, float((a - w).abs() / w.abs()))
+        if worst > NEAR_TIE_REL:
+            raise AssertionError(f"has-rag: rejected ids differ from "
+                                 f"chunked_flat_search ({worst:.3g})")
+        m = HASRAG_SORT_ROWS
+        small = (corpus[:m], codes[:m], scale[:m], doc_emb, doc_ids, q_ids,
+                 q_valid, q1)
+        whole = has_retrieval_step(*small, k=k, tau=cfg.tau, merge_chunks=0)
+        chunked = has_retrieval_step(*small, k=k, tau=cfg.tau,
+                                     merge_chunks=HASRAG_CHUNKS)
+        for x, y in zip(whole, chunked):
+            if not torch.equal(x, y):
+                raise AssertionError("has-rag: merge_chunks 0 and "
+                                     f"{HASRAG_CHUNKS} differ at {m} rows")
+    rec["bound_ms"], rec["bound_by"] = bound(n * 3840,
+                                             2 * b * d * n * 2)
+    info.update(rec, accepted=int(acc.sum()), rejected=len(rej),
+                best_accepted_min=float(best[acc].min()) if acc.any()
+                else None,
+                rejected_ids_equal=not len(diff), near_ties=len(diff),
+                near_tie_worst_rel=worst, sort_check_rows=m,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not (acc.any() and (~acc).any()):
+        raise AssertionError(f"has-rag: accepted {int(acc.sum())} of {b}")
+    return info
+
+
+def phase11(dev) -> dict:
+    """Phase 11: 11a the registry, then 11d has-rag, 11c DimeNet and 11b
+    recsys, the order in which their host draws are ready."""
+    timer = Timer(dev)
+    out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=ctx) as pool:
+        draws = start_draws(pool)
+        for key, fn in (("11a", lambda: registry_path(dev)),
+                        ("11d", lambda: has_rag_path(dev, timer)),
+                        ("11c", lambda: gnn_path(dev, draws)),
+                        ("11b", lambda: recsys_path(dev, timer, draws))):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["phase_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def fmt_rec(r: dict) -> str:
+    return (f"{r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms, "
+            f"{r['bound_by']}), busy {r['device_busy_ms']:.3f} of "
+            f"{r['wall_ms']:.3f} ms wall, idle {r['device_idle_share']:.3f},"
+            f" {r['launches']:.0f} launches, peak {r['peak_gb']:.2f} GB")
+
+
+def fmt_train(r: dict) -> str:
+    p, o = r["profile"], r["optimizer"]
+    return (f"step {r['step_ms']:.1f} ms (bound {r['bound_ms']:.3f} ms, "
+            f"{r['bound_by']}; steps {[round(s, 4) for s in r['step_s']]} "
+            f"s), loss {[round(m['loss'], 4) for m in r['metrics']]}, busy "
+            f"{p['device_busy_ms']:.1f} of {p['wall_ms']:.1f} ms, idle "
+            f"{p['device_idle_share']:.3f}, {p['launches']:.0f} launches, "
+            f"peak {r['peak_memory_gb']:.2f} GB; AdamW update "
+            f"{o['update_ms']:.2f} ms (bound {o['update_bound_ms']:.2f} ms,"
+            f" bytes), with norm and clip {o['with_norm_and_clip_ms']:.2f} "
+            f"ms")
+
+
+def report_phase11(p: dict) -> None:
+    a = p["11a"]
+    log(f"[11a registry] {len(a['archs'])} archs {a['archs']}; "
+        f"launch.train.main x{P11_STEPS} steps on the card: " + ", ".join(
+            f"{k} {[round(x, 4) for x in v['losses']]} ({v['s']:.1f} s)"
+            for k, v in a["cli"].items()))
+    log(f"[11a registry] --arch has-rag raises: {a['has_rag_raises']}; "
+        f"ClickLog, SessionLog and make_graph_batch digests equal the "
+        f"reference's (numpy {np.__version__}); has-rag smoke ids and "
+        f"accept equal the CPU's")
+    log("[11a registry] smokes card vs CPU (forward / loss / gradients, "
+        f"tolerance {SMOKE_TOL}): " + "; ".join(
+            f"{k} {v['forward_rel_err']:.3g} / {v['loss_rel_err']:.3g} / "
+            f"{v['grad_rel_err']:.3g}" for k, v in
+            a["smoke_vs_cpu"].items()) + f"; {a['phase_s']:.1f} s")
+    for name in ("dlrm-rm2", "deepfm", "autoint", "bert4rec"):
+        r = p["11b"][name]
+        head = (f"[11b recsys] {name}: {r['params'] / 1e6:.2f}M params, "
+                f"{r['weights_gb']:.2f} GB, table {r['table_rows']} rows")
+        if name == "bert4rec":
+            log(f"{head}; serve_p99 {fmt_rec(r['serve_p99'])}")
+            log(f"[11b recsys] bert4rec train_batch ({r['n_micro']} x "
+                f"{r['micro_batch']} sequences): "
+                f"{fmt_train(r['train_batch'])}; {r['s']:.1f} s")
+            continue
+        log(f"{head}, init {r['init_s']:.2f} s, draw wait "
+            f"{r['draw_wait_s']:.2f} s; train_batch "
+            f"{fmt_train(r['train_batch'])}")
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            extra = ""
+            if shape == "retrieval_cand":
+                rc = r[shape]
+                extra = (f"; ids equal the GEMV + stable sort's: "
+                         f"{rc['ids_equal']} ({rc['near_ties']} near-ties)")
+            log(f"[11b recsys] {name} {shape}: {fmt_rec(r[shape])}{extra}")
+    for shape in GNN_RUN:
+        r = p["11c"][shape]
+        log(f"[11c dimenet] {shape} ({r['task']}, {r['triplets']} "
+            f"triplets, {r['self_loops_masked']} self-loops masked, loss "
+            f"{r['unmasked_loss']!r} unmasked, setup {r['setup_s']:.1f} s): "
+            f"{fmt_train(r)}")
+    h = p["11d"]
+    log(f"[11d has-rag] {h['rows']} rows ({h['store_gb']:.1f} GB), "
+        f"merge_chunks {h['merge_chunks']}, 64 queries: {fmt_rec(h)}; "
+        f"accepted {h['accepted']}, rejected {h['rejected']} (rejected ids "
+        f"equal chunked_flat_search: {h['rejected_ids_equal']}, "
+        f"{h['near_ties']} near-ties); merge_chunks 0 = "
+        f"{h['merge_chunks']} at {h['sort_check_rows']} rows; peak "
+        f"{h['peak_memory_gb']:.1f} GB")
+
+
 def stream_kw() -> dict:
     from repro_torch.data.synthetic import DATASETS
     ds = DATASETS["granola"]
@@ -4690,7 +5368,23 @@ def main() -> int:
     log(f"[10 train] phase 10 in {tr['phase_s']:.1f} s; the eight "
         f"kernels' launches: {tr['launches']} (training runs none)")
 
-    # phase 11: the kernels line and the result line
+    # phase 11: the registry and the remaining model families (recsys,
+    # DimeNet, has-rag) at full width, on a card freed of phase 10's
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    t0 = time.perf_counter()
+    p11 = phase11(dev)
+    p11["phase_s"] = time.perf_counter() - t0
+    p11["launches"] = counters.read()
+    report_phase11(p11)
+    if any(p11["launches"].values()):
+        raise AssertionError(f"phase 11 launched a retrieval or serving "
+                             f"kernel: {p11['launches']}")
+    log(f"[11] phase 11 in {p11['phase_s']:.1f} s; the eight kernels' "
+        f"launches: {p11['launches']} (these families run none)")
+
+    # phase 12: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -4740,7 +5434,7 @@ def main() -> int:
          "moe_path": moe, "moe_phase_s": moe_s, "rag_twin": rt,
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path, "world_digests": digest_info,
-         "phase9": p9, "train_path": tr,
+         "phase9": p9, "train_path": tr, "phase11": p11,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -20,8 +20,12 @@ take the ``dtype`` argument of ``init_params``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.families import lm_shapes, lm_smoke
 from repro_torch.models.transformer import TransformerConfig
 
 # the q-block scan bounds the prefill's score transient
@@ -51,3 +55,11 @@ LM_CONFIGS = {
         n_kv_heads=2, d_ff=13696, vocab_size=65024, d_head=128,
         rope_fraction=0.5, attn_block_q=_BLOCK_Q),
 }
+
+for _name, _cfg in LM_CONFIGS.items():
+    ArchSpec(
+        name=_name, family="lm", source="assigned LM pool",
+        shapes=lm_shapes(),
+        make_smoke=functools.partial(lm_smoke, _cfg),
+        config=_cfg,
+    ).register()

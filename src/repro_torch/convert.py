@@ -13,7 +13,11 @@ parameters go across as the reference's nested dict of numpy arrays, with
 the per-layer leaves stacked over a leading ``n_layers`` dim, as serving
 weights (``transformer_params_*``) or as training masters
 (``transformer_master_params_from_numpy``); an optimizer state goes
-across in the reference's stacked layout (``opt_state_*``).
+across in the reference's stacked layout (``opt_state_*``).  The recsys
+and DimeNet parameters go across as the reference's trees of numpy
+arrays (``float_tree_*``): the reference's lists
+(the recsys MLP, attention and block lists) become the port's dicts keyed
+by position, and DimeNet's ``blocks`` stay stacked ``[n_blocks, ...]``.
 """
 from __future__ import annotations
 
@@ -203,3 +207,30 @@ def opt_state_to_numpy(state: Mapping) -> dict:
     if isinstance(state, Mapping):
         return {k: opt_state_to_numpy(v) for k, v in state.items()}
     return state.cpu().numpy()
+
+
+def float_tree_from_numpy(tree, device=None) -> dict:
+    """The reference's recsys or DimeNet parameter tree (numpy leaves; the
+    recsys MLP, attention and block lists as lists, DimeNet's ``blocks``
+    stacked ``[n_blocks, ...]``) -> the port's f32 parameters, the same
+    tree with each list a dict keyed ``"0"``, ``"1"``, ..."""
+    dev = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: float_tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): float_tree_from_numpy(v, dev)
+                for i, v in enumerate(tree)}
+    return torch.tensor(np.asarray(tree, np.float32), device=dev)
+
+
+def float_tree_to_numpy(tree):
+    """The port's recsys or DimeNet parameters (or a tree of their
+    gradients or optimizer moments) -> the reference's tree of f32 numpy
+    arrays, the position-keyed dicts as lists."""
+    if isinstance(tree, Mapping):
+        out = {k: float_tree_to_numpy(v) for k, v in tree.items()}
+        if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    return tree.detach().float().cpu().numpy()
+

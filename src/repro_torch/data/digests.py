@@ -12,7 +12,10 @@ d=768, 500,000 passages), each with the granola stream of seed 1 whose
 first 400 queries the full scan serves.  ``MARKOV_SIZES`` names the
 training path's Markov LM sources (``data/lm.py``), pinned the same way:
 ``tests/test_torch_train_cli.py`` and ``chip_smoke.py`` phase 10a assert
-them.
+them.  ``RECSYS_SIZES`` and ``GRAPH_SIZES`` name the recsys and graph
+sources (``data/recsys.py``, ``data/graph.py``), pinned the same way:
+``tests/test_torch_recsys_models.py``, ``tests/test_torch_dimenet.py``
+and ``chip_smoke.py`` phase 11a assert them.
 """
 from __future__ import annotations
 
@@ -70,6 +73,53 @@ MARKOV_PINNED = {
     "lm20m": {"probs": "ce28a9c7482f022d9cd016fa54fb2b8e",
               "tokens": "167e09b8fa1c5fd81750f94928b72e3b",
               "labels": "003a4fe17ed50229342b18a3840cbf71"},
+}
+
+_CRITEO = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+           8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18,
+           15, 286181, 105, 142572)
+
+#: name -> (source, constructor kwargs, sample args): dlrm-rm2's 26 Criteo
+#: fields with 13 dense features, the 39-field set of deepfm and autoint,
+#: and bert4rec's sessions (each source's first ``sample``)
+RECSYS_SIZES = {
+    "dlrm26": ("click", dict(vocab_sizes=_CRITEO, n_dense=13, seed=0),
+               (4096,)),
+    "fields39": ("click", dict(vocab_sizes=_CRITEO + (100_000,) * 13,
+                               seed=0), (4096,)),
+    "sessions": ("session", dict(n_items=26744, seed=0), (64, 200)),
+}
+
+#: name -> ``make_graph_batch`` kwargs: DimeNet's full_graph_sm block
+GRAPH_SIZES = {
+    "full_graph_sm": dict(n_nodes=2816, n_edges=10752, d_feat=1433,
+                          n_classes=7, t_max=86016, cap_per_edge=8, seed=0),
+}
+
+#: the reference's digests (``repro.data.recsys`` and ``repro.data.graph``,
+#: numpy 2.0.2), every array of each batch
+RECSYS_PINNED = {
+    "dlrm26": {"sparse_ids": "f85e83e62f0a15a34959c010046411e4",
+               "dense": "4364d0e82b100922c62ad3af78bfead0",
+               "labels": "9d35a2bf3b1e737ad95e281657acb8b4"},
+    "fields39": {"sparse_ids": "4945956f4910d832cb11af8294ae42bb",
+                 "labels": "1ca6f4b7dc6d50960a94fea04acf0be1"},
+    "sessions": {"items": "db118049a518d078fb300e680d6d4da6",
+                 "labels": "33c8555e33c6c1d3b4dd880578123bbc",
+                 "label_mask": "854c1fcf906ec604902da44a922407b1",
+                 "mask": "cc01e57bec20b3f8ad2da8f070e05021"},
+}
+GRAPH_PINNED = {
+    "full_graph_sm": {"x": "cd6ed684116c383fb291d6429301c606",
+                      "pos": "14ff0f42e6137c95267f4036e411f416",
+                      "edge_src": "a4391400c65193582669d1ef6ce4138a",
+                      "edge_dst": "f70e167565bc3daa913c7651f39cb5c2",
+                      "labels": "a7a576d619fb918741d987a1a12d8ae9",
+                      "edge_mask": "09e87375b8d8e559f13f76cb4d95a24f",
+                      "tri_edge_in": "7baae6da49ef60dba1212515535ba098",
+                      "tri_edge_out": "30415736a138906059e85918d507a56a",
+                      "tri_mask": "429154883d8ae8bb4127d1deefc3ace3",
+                      "node_mask": "638f33bb9c93700c34449153e640053d"},
 }
 
 #: ``default_rng(1).zipf(1.12, size=6000)[:4]``, the first draws of the
@@ -162,3 +212,18 @@ def markov_digests(markov_cls, size: str) -> dict[str, str]:
     first = lm.sample(np.random.default_rng(1), batch, seq)
     return {"probs": md5(lm.probs), "tokens": md5(first["tokens"]),
             "labels": md5(first["labels"])}
+
+
+def recsys_digests(click_cls, session_cls, size: str) -> dict[str, str]:
+    """The digests of one of ``RECSYS_SIZES``, drawn with the given
+    ``ClickLog`` / ``SessionLog`` classes (either package's)."""
+    source, kw, args = RECSYS_SIZES[size]
+    cls = click_cls if source == "click" else session_cls
+    return {k: md5(v) for k, v in cls(**kw).sample(*args).items()}
+
+
+def graph_digests(make_graph_batch, size: str) -> dict[str, str]:
+    """The digests of one of ``GRAPH_SIZES``, built with the given
+    ``make_graph_batch`` (either package's)."""
+    return {k: md5(v) for k, v in
+            make_graph_batch(**GRAPH_SIZES[size]).items()}

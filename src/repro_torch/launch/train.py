@@ -3,12 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --preset lm100m --steps 300 --ckpt-dir ck
 
-The twin of ``repro/launch/train.py``: any registered LM arch at smoke
-scale, or the ~100M-param preset, with checkpoint/restore (atomic, async),
-the straggler watchdog and the same printed lines, plus ``--device``
-(default ``cuda``; ``cpu`` runs on the CPU).  The other families' archs
-(GNN, recsys, the paper's retrieval step) raise ``NotImplementedError``:
-their models are later slices of the port.
+The twin of ``repro/launch/train.py``: any registered arch at smoke scale
+(the five LMs, the four recsys models, DimeNet) through the registry, or
+the ~100M-param preset, with checkpoint/restore (atomic, async), the
+straggler watchdog and the same printed lines, plus ``--device`` (default
+``cuda``; ``cpu`` runs on the CPU).  ``--arch has-rag`` raises
+``ValueError``: the paper's retrieval step has no train step (the
+reference fails there too, unpacking its smoke's three values into five).
 
 Checkpoints are flat mappings of named tensors (``params/layers/3/attn/wq``,
 ``opt/m/layers/attn/wq``, ``opt/step``).  On resume, ``train_lm`` draws and
@@ -26,13 +27,6 @@ import numpy as np
 import torch
 
 from repro_torch.utils import resolve_device, synchronize
-
-# the reference's other registered archs, by the family that holds them
-LATER_SLICES = {"dlrm-rm2": "the recsys models", "deepfm": "the recsys models",
-                "autoint": "the recsys models",
-                "bert4rec": "the recsys models", "dimenet": "DimeNet",
-                "has-rag": "the pod-scale has-rag step"}
-
 
 def make_lm100m():
     """~100M-param dense transformer for the end-to-end training example."""
@@ -144,18 +138,15 @@ def main(argv=None) -> list[float]:
         return train_lm(cfg, args.steps, args.batch, args.seq, args.ckpt_dir,
                         device=args.device)
 
-    from repro_torch.configs.families import lm_smoke
-    from repro_torch.configs.lm_archs import LM_CONFIGS
-    if args.arch in LATER_SLICES:
-        raise NotImplementedError(
-            f"{args.arch}: {LATER_SLICES[args.arch]} are not ported yet (a "
-            "later slice of the port); --arch takes the LM archs "
-            f"{sorted(LM_CONFIGS)}")
-    if args.arch not in LM_CONFIGS:
-        raise KeyError(f"unknown arch {args.arch!r}; the LM archs are "
-                       f"{sorted(LM_CONFIGS)}")
-    cfg, params, opt_state, step, batch = lm_smoke(LM_CONFIGS[args.arch],
-                                                   args.device)
+    from repro_torch.configs import all_archs, get_arch
+    if args.arch not in all_archs():
+        raise KeyError(f"unknown arch {args.arch!r}; the registered archs "
+                       f"are {all_archs()}")
+    spec = get_arch(args.arch)
+    if spec.family == "rag":
+        raise ValueError(f"{args.arch} is a retrieval step (family "
+                         f"{spec.family!r}): it has no train step")
+    cfg, params, opt_state, step, batch = spec.make_smoke(device=args.device)
     losses = []
     for i in range(args.steps):
         params, opt_state, metrics = step(params, opt_state, batch)

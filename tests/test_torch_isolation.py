@@ -230,6 +230,37 @@ def test_training_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     assert len(train.train_lm(cfg, 1, 2, 8, None, device="cpu")) == 1
 
 
+def test_model_family_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The recsys models, DimeNet, the has-rag step and their registry
+    smokes and CLI runs default to CUDA and raise without a card."""
+    from repro_torch.configs import all_archs, get_arch
+    from repro_torch.configs.recsys_archs import RECSYS_CONFIGS
+    from repro_torch.launch import train
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import recsys as rs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(vocab_sizes=(8, 8), embed_dim=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rs.init_params(rs.RecsysConfig(name="t", kind="deepfm", mlp=(4,),
+                                       **small))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RECSYS_CONFIGS["dlrm-rm2"].field_offsets()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dn.init_params(dn.DimeNetConfig(n_blocks=1, d_hidden=8, d_feat=4))
+    for arch in all_archs():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_arch(arch).make_smoke()
+    for arch in ("dlrm-rm2", "bert4rec", "dimenet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--steps", "1"])
+    # asked for explicitly, the CPU works
+    assert rs.init_params(rs.RecsysConfig(name="t", kind="deepfm",
+                                          mlp=(4,), **small),
+                          device="cpu")["w1"].device.type == "cpu"
+    assert len(train.main(["--arch", "dimenet", "--steps", "1",
+                           "--device", "cpu"])) == 1
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
