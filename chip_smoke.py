@@ -185,7 +185,27 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    bound, and each train step the optimizer alone against its bytes
    bound.  The eight kernels' counts are set to 0 before phase 11 and
    must read 0 after;
-12. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
+12. the dry run and the roofline (``repro_torch.launch.dryrun``,
+   ``launch/roofline.py``) and the multi-rank exact search, with the eight
+   kernels' counts set to 0 before and read 0 after: (a) the four cells
+   phases 10 and 11 measured (chatglm3-6b's 10b step, dlrm-rm2's
+   train_batch, DimeNet's minibatch_lg, has-rag at 12,582,912 rows) run on
+   ``meta`` with the variants that make their steps 10b's and 11's: the
+   predicted peak (arguments + temp) within ``PEAK_TOL`` of the step's
+   arguments and its ``max_memory_allocated`` above the baseline, the
+   arguments, counted against model FLOPs, and the roofline's bound
+   against the step time phases 10 and 11 measured (not measured again):
+   that share must be at most 1; (b) ``distributed_flat_search`` at NCCL
+   world 1 on the card and at gloo world 4 in CPU processes on its host
+   (one card: NCCL takes one rank a card), ids against
+   ``chunked_flat_search`` on the card up to proven near-ties; (c) the
+   ``--all`` sweep in ``SWEEP_JOBS`` processes, started after (b) so that
+   it runs beside (a) and no timed phase: all 41 cells OK with every key,
+   each cell's bound at most the dry run's prediction for the port (the
+   larger of its compute and traffic terms), their roofline written to
+   ``chiprun_out/roofline.md`` beside ``dryrun.json``, and one decode
+   cell on ``meta`` in this process;
+13. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
    recsys kernels' on their own: ``decode_attention`` phases 6 and 6b),
    then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -201,7 +221,9 @@ import dataclasses
 import gc
 import json
 import multiprocessing
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -356,6 +378,26 @@ HASRAG_SORT_ROWS = 48 << 15    # merge_chunks 0 (whole-row sort) vs 48 here
 # (relative): f32 sums of up to 768 products in other orders
 NEAR_TIE_REL = 1e-5
 PROFILE_TRIES = 3              # traces of a short call; the fullest is kept
+
+# phase 12: the dry run, the roofline and the multi-rank exact search
+# 12a: the cells whose steps phases 10 and 11 measured, with the dry run's
+# variants that make its step theirs
+P12_CELLS = {
+    "chatglm3-6b": ("train_4k", dict(
+        n_layers=TRAIN_DENSE_LAYERS, global_batch=TRAIN_MICRO * TRAIN_N_MICRO,
+        n_micro=TRAIN_N_MICRO)),
+    "dlrm-rm2": ("train_batch", {}),
+    "dimenet": ("minibatch_lg", {}),
+    "has-rag": ("retrieve_batch", dict(corpus_size=HASRAG_ROWS)),
+}
+PEAK_TOL = 0.10                # the dry run's peak and arguments, relative
+DIST_ROWS = 262_144            # 12b's corpus (d=768): 65,536 rows a gloo rank
+DIST_QUERIES = 64
+DIST_WORLD = 4                 # gloo ranks on the card's host
+DIST_DEADLINE_S = 120
+SWEEP_CELLS = 41               # the registry's (arch x shape) cells
+SWEEP_JOBS = 6                 # the sweep's processes on the card's host
+SWEEP_WAIT_S = 420             # 12c's longest wait for the sweep to end
 
 
 def log(*a):
@@ -4003,6 +4045,18 @@ def peak_gb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def step_memory(*args) -> dict:
+    """Before a step's peak is measured: the bytes of its arguments and
+    of everything allocated (the baseline), then the peak stats reset.
+    The step's own peak is ``args + max_memory_allocated - baseline``
+    (phase 12a holds the dry run's prediction to it)."""
+    torch.cuda.synchronize()
+    out = {"step_args_bytes": tree_bytes(args),
+           "step_baseline_bytes": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
 def timed_steps(step, params, state, batch, n: int) -> tuple[list, list]:
     """``n`` steps on the host clock (each ending in a synchronize) ->
     (seconds, metrics with floats)."""
@@ -4259,7 +4313,7 @@ def train_dense(dev) -> dict:
     step = make_train_step_accum(
         functools.partial(tf.loss_fn, cfg=cfg, compute_dtype=torch.bfloat16),
         opt_cfg, TRAIN_N_MICRO)
-    torch.cuda.reset_peak_memory_stats()
+    info.update(step_memory(params, state, batch))
     times, metrics = timed_steps(step, params, state, batch, TRAIN_RUN)
     info["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return finish_train(info, cfg, step, params, state, batch, times,
@@ -4656,22 +4710,23 @@ def call_profile(fn, timer, reps: int) -> dict:
 
 
 def train_record(step, params, state, batch, opt_cfg, work, n_params,
-                 batch_bytes, steps: int = 2) -> dict:
-    """``steps`` timed steps (host clock to a synchronize; the last is the
-    step time), one profiled step, the optimizer alone and the bounds:
-    the step's (3 x the forward's operations; reading and writing each
-    parameter and both moments, 24 B a parameter, and the batch once) and
-    the update's (28 B a parameter, the gradient read too)."""
+                 batch_bytes, steps: int = 4) -> dict:
+    """``steps`` timed steps (host clock to a synchronize; the median of
+    all but the first is the step time, the one step when ``steps`` is
+    1), one profiled step, the optimizer alone and the bounds: the step's
+    (3 x the forward's operations; reading and writing each parameter and
+    both moments, 24 B a parameter, and the batch once) and the update's
+    (28 B a parameter, the gradient read too)."""
     from repro_torch.training.optimizer import adamw_update
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    mem = step_memory(params, state, batch)
     times, metrics = timed_steps(step, params, state, batch, steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not all(np.isfinite(m["loss"]) for m in metrics):
         raise AssertionError(f"train: loss {metrics}")
-    rec = {"step_s": times, "step_ms": times[-1] * 1e3, "metrics": metrics,
-           "peak_memory_gb": peak,
-           "profile": step_profile(step, params, state, batch, times[-1]),
+    step_s = statistics.median(times[1:] or times)
+    rec = {"step_s": times, "step_ms": step_s * 1e3, "metrics": metrics,
+           "peak_memory_gb": peak, **mem,
+           "profile": step_profile(step, params, state, batch, step_s),
            "optimizer": optimizer_ms(opt_cfg, params, state, adamw_update)}
     rec["bound_ms"], rec["bound_by"] = bound(24 * n_params + batch_bytes,
                                              3 * work)
@@ -4956,6 +5011,7 @@ def has_rag_path(dev, timer) -> dict:
         args = (corpus, codes, scale, doc_emb, doc_ids, q_ids, q_valid, q1)
         ids, acc, best = step(*args)
         rec = call_profile(lambda: step(*args), timer, 5)
+        rec["step_args_bytes"] = tree_bytes(args)
         rej = (~acc).nonzero().flatten()
         _, want = chunked_flat_search(corpus, q1[rej], k)
         diff = (ids[rej] != want).nonzero()
@@ -5083,6 +5139,305 @@ def report_phase11(p: dict) -> None:
         f"{h['near_ties']} near-ties); merge_chunks 0 = "
         f"{h['merge_chunks']} at {h['sort_check_rows']} rows; peak "
         f"{h['peak_memory_gb']:.1f} GB")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the dry run, the roofline and the multi-rank exact search
+# ---------------------------------------------------------------------------
+
+_CHILDREN: list = []           # processes to stop when the script ends
+
+
+def stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_sweep() -> subprocess.Popen:
+    """12c's sweep, ``python -m repro_torch.launch.dryrun --all`` in
+    SWEEP_JOBS processes (``meta`` tensors only), started once the timed
+    phases are done: CPU work beside phase 11 slowed its host-bound
+    steps."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "dryrun.json").unlink(missing_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    with open(out_dir / "dryrun.log", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--jobs", str(SWEEP_JOBS), "--out",
+             str(out_dir / "dryrun.json")],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def measured_steps(tr: dict, p11: dict) -> dict:
+    """12a's measured side, from phases 10 and 11 (nothing run again):
+    name -> (step seconds, argument bytes, the step's peak bytes: its
+    arguments and the most allocated above the baseline)."""
+    dlrm, gnn = p11["11b"]["dlrm-rm2"]["train_batch"], \
+        p11["11c"]["minibatch_lg"]
+    out = {}
+    for name, rec, step_s in (
+            ("chatglm3-6b", tr["10b"], tr["10b"]["step_s_median"]),
+            ("dlrm-rm2", dlrm, dlrm["step_ms"] / 1e3),
+            ("dimenet", gnn, gnn["step_ms"] / 1e3)):
+        above = rec["peak_memory_gb"] * 1e9 - rec["step_baseline_bytes"]
+        out[name] = (step_s, rec["step_args_bytes"],
+                     rec["step_args_bytes"] + above)
+    h = p11["11d"]
+    out["has-rag"] = (h["ms"] / 1e3, h["step_args_bytes"],
+                      h["step_args_bytes"] + h["peak_gb"] * 1e9)
+    return out
+
+
+def dryrun_check(tr: dict, p11: dict) -> dict:
+    """12a: the dry run (on ``meta``, in this process) of the four cells
+    phases 10 and 11 measured, against what they measured: the peak
+    within PEAK_TOL, the arguments, counted against model FLOPs, and the
+    step's share of its roofline bound, which must be at most 1."""
+    from repro_torch.configs.has_rag import MERGE_CHUNKS
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import run_cell
+    if MERGE_CHUNKS != HASRAG_CHUNKS:
+        raise AssertionError("12a: the has-rag cell's merge_chunks is not "
+                             "11d's")
+    measured = measured_steps(tr, p11)
+    out = {}
+    for name, (shape, variant) in P12_CELLS.items():
+        rec = run_cell(name, shape, **variant)
+        if not rec["ok"]:
+            raise AssertionError(f"12a {name}: {rec['error']}")
+        (row,) = rl.analyze([rec])
+        step_s, args_b, peak_b = measured[name]
+        pred_peak = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        r = {"shape": shape, "variant": variant, "record": rec, "row": row,
+             "step_s": step_s, "args_measured_bytes": args_b,
+             "peak_measured_bytes": peak_b, "peak_predicted_bytes": pred_peak,
+             "peak_rel_err": pred_peak / peak_b - 1,
+             "args_rel_err": rec["argument_size_in_bytes"] / args_b - 1,
+             "bound_share": row["bound_s"] / step_s}
+        if abs(r["peak_rel_err"]) > PEAK_TOL or \
+                abs(r["args_rel_err"]) > PEAK_TOL:
+            raise AssertionError(f"12a {name}: predicted peak {pred_peak} "
+                                 f"and arguments against {peak_b} and "
+                                 f"{args_b}")
+        if not 0 < r["bound_share"] <= 1:
+            raise AssertionError(f"12a {name}: the bound {row['bound_s']} s "
+                                 f"is above the step's {step_s} s")
+        out[name] = r
+    return out
+
+
+def dist_inputs(n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """12b's unit-norm corpus [n, 768] and DIST_QUERIES queries, drawn on
+    the CPU from a torch generator (every rank draws the same)."""
+    g = torch.Generator().manual_seed(seed)
+    corpus = torch.randn((n, 768), generator=g)
+    q = torch.randn((DIST_QUERIES, 768), generator=g)
+    return (corpus / corpus.norm(dim=1, keepdim=True),
+            q / q.norm(dim=1, keepdim=True))
+
+
+def timed_search(search, shard, q, sync) -> tuple:
+    """The result and the median host time (ms) of 5 searches."""
+    res, times = search(shard, q, K), []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        search(shard, q, K)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, statistics.median(times)
+
+
+def gloo_rank(rank: int, world: int, root: str, n: int) -> None:
+    """One gloo rank of 12b on the card's host: its row block of the
+    corpus through ``distributed_flat_search``, written to
+    ``{root}/gloo_rank{rank}.npz``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.retrieval.distributed import distributed_flat_search
+    dist.init_process_group("gloo", init_method=f"file://{root}/gloo_rdzv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        corpus, q = dist_inputs(n, 0)
+        rows = n // world
+        (s, i), ms = timed_search(distributed_flat_search(),
+                                  corpus[rank * rows:(rank + 1) * rows], q,
+                                  lambda: None)
+        np.savez(f"{root}/gloo_rank{rank}.npz", s=s.numpy(), i=i.numpy(),
+                 ms=ms)
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_path(dev) -> dict:
+    """12b: ``distributed_flat_search`` at NCCL world 1 on the card (NCCL
+    takes one rank a card, and this machine has one) and at gloo world
+    DIST_WORLD in CPU processes on its host, each against
+    ``chunked_flat_search`` on the card over the same corpus: ids equal
+    except at near-ties proven by recomputed scores."""
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.retrieval.distributed import distributed_flat_search
+    from repro_torch.retrieval.flat import chunked_flat_search
+    root = ROOT / "chiprun_out" / "p12"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    corpus, q = dist_inputs(DIST_ROWS, 0)
+    c_dev, q_dev = corpus.to(dev), q.to(dev)
+    want_s, want_i = chunked_flat_search(c_dev, q_dev, K)
+    want_s, want_i = want_s.cpu(), want_i.cpu()
+
+    def score_of(row, i):
+        return float(corpus[i].double() @ q[row].double())
+
+    def held(what, s, i) -> dict:
+        err, swaps = compare_topk(what, s, i, want_s, want_i, score_of)
+        return {"ids_equal": bool(torch.equal(i, want_i)),
+                "near_ties": swaps, "score_err": err}
+
+    out = {}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_rdzv",
+                            rank=0, world_size=1)
+    try:
+        (s, i), ms = timed_search(distributed_flat_search(), c_dev, q_dev,
+                                  torch.cuda.synchronize)
+    finally:
+        dist.destroy_process_group()
+    out["nccl"] = {**held("12b nccl", s.cpu(), i.cpu()), "world": 1,
+                   "search_ms": ms, "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(gloo_rank, args=(DIST_WORLD, str(root),
+                                               DIST_ROWS),
+                              nprocs=DIST_WORLD, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"12b: {DIST_WORLD} gloo ranks not "
+                                     f"done in {DIST_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [np.load(root / f"gloo_rank{r}.npz") for r in range(DIST_WORLD)]
+    for r in ranks[1:]:
+        if not (np.array_equal(r["s"], ranks[0]["s"])
+                and np.array_equal(r["i"], ranks[0]["i"])):
+            raise AssertionError("12b gloo: the ranks' results differ")
+    s, i = torch.from_numpy(ranks[0]["s"]), torch.from_numpy(ranks[0]["i"])
+    out["gloo"] = {**held("12b gloo", s, i), "world": DIST_WORLD,
+                   "search_ms": float(ranks[0]["ms"]),
+                   "s": time.perf_counter() - t0}
+    return out
+
+
+def sweep_path(sweep, started: float) -> dict:
+    """12c: the ``--all`` sweep's records (every cell OK, every key) and
+    their roofline, written beside them, each cell's bound at most the
+    larger of its predicted compute and traffic; then one decode cell on
+    ``meta`` in this process (the kernels' counts are read after phase
+    12)."""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    try:
+        code = sweep.wait(timeout=SWEEP_WAIT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"12c: the sweep did not end within "
+                             f"{SWEEP_WAIT_S} s of phase 12") from None
+    waited = time.perf_counter() - t0
+    wall = time.perf_counter() - started
+    out_dir = ROOT / "chiprun_out"
+    if code != 0:
+        raise AssertionError(f"12c: the sweep exited {code} (dryrun.log)")
+    recs = json.loads((out_dir / "dryrun.json").read_text())
+    keys = ("mesh", "n_devices", "lower_s", "flops_per_device",
+            "flops_by_dtype", "bytes_per_device", "argument_size_in_bytes",
+            "output_size_in_bytes", "argument_read_bytes",
+            "output_written_bytes", "temp_size_in_bytes", "fits_one_card",
+            "collectives")
+    bad = [f"{r['arch']} {r['shape']}" for r in recs
+           if not r["ok"] or any(k not in r for k in keys)]
+    if len(recs) != SWEEP_CELLS or bad:
+        raise AssertionError(f"12c: {len(recs)} records, failed: {bad}")
+    rows = rl.analyze(recs)
+    over = [f"{r['arch']} {r['shape']}" for r in rows
+            if r["bound_s"] > max(r["t_compute_s"], r["t_memory_s"])]
+    if over:
+        raise AssertionError(f"12c: bound above the dry run's prediction "
+                             f"in {over}")
+    (out_dir / "roofline.md").write_text(rl.to_markdown(rows) + "\n")
+    (out_dir / "roofline.json").write_text(json.dumps(rows, indent=1))
+    dec = run_cell("chatglm3-6b", "long_500k")
+    if not dec["ok"]:
+        raise AssertionError(f"12c: the decode cell on meta: {dec}")
+    return {"cells": len(recs), "fit": sum(r["fits_one_card"] for r in recs),
+            "sweep_s": sum(r["lower_s"] for r in recs), "waited_s": waited,
+            "wall_s": wall,
+            "largest": max(recs, key=lambda r: r["argument_size_in_bytes"]
+                           + r["temp_size_in_bytes"]),
+            "decode_cell": dec, "roofline": rows}
+
+
+def report_phase12(p: dict) -> None:
+    for name, r in p["12a"].items():
+        rec, row = r["record"], r["row"]
+        var = "".join(f", {k}={v}" for k, v in sorted(r["variant"].items()))
+        log(f"[12a dryrun] {name} {r['shape']}{var}: peak predicted "
+            f"{r['peak_predicted_bytes'] / 1e9:.2f} GB (arguments "
+            f"{rec['argument_size_in_bytes'] / 1e9:.2f} + temp "
+            f"{rec['temp_size_in_bytes'] / 1e9:.2f}), measured "
+            f"{r['peak_measured_bytes'] / 1e9:.2f} GB (arguments and "
+            f"max_memory_allocated above the baseline) "
+            f"({r['peak_rel_err']:+.1%}, tolerance {PEAK_TOL:.0%}); arguments"
+            f" {rec['argument_size_in_bytes'] / 1e9:.2f} / "
+            f"{r['args_measured_bytes'] / 1e9:.2f} GB; FLOPs counted "
+            f"{rec['flops_per_device'] / 1e12:.2f} T, model "
+            f"{row['model_flops_total'] / 1e12:.2f} T, the bound's products "
+            f"{row['bound_flops'] / 1e12:.2f} T; bound "
+            f"{row['bound_s'] * 1e3:.2f} ms ({row['bound_by']}), step "
+            f"{r['step_s'] * 1e3:.2f} ms: the step's share of its bound "
+            f"{r['bound_share']:.3f}")
+    for key in ("nccl", "gloo"):
+        d = p["12b"][key]
+        where = ("on the card" if key == "nccl" else
+                 "in CPU processes on the card's host (one card: four "
+                 "cards were not available)")
+        log(f"[12b distributed] {key} world {d['world']} {where}, "
+            f"{DIST_ROWS} x 768 rows, {DIST_QUERIES} queries, k={K}: ids "
+            f"equal chunked_flat_search's: {d['ids_equal']} "
+            f"({d['near_ties']} near-ties), score error {d['score_err']:.3g};"
+            f" a search {d['search_ms']:.3f} ms (host clock, median of 5); "
+            f"{d['s']:.1f} s with setup")
+    c = p["12c"]
+    big = c["largest"]
+    dec = c["decode_cell"]
+    log(f"[12c sweep] {c['cells']} cells OK, {c['fit']} fit one card "
+        f"(arguments + temp within 80 GB); the largest "
+        f"{big['arch']} {big['shape']}, "
+        f"{(big['argument_size_in_bytes'] + big['temp_size_in_bytes']) / 1e9:.1f}"
+        f" GB; every bound at most the larger of the predicted compute and "
+        f"traffic; the cells' counted calls took {c['sweep_s']:.1f} s in "
+        f"{SWEEP_JOBS} processes, {c['wall_s']:.1f} s from the sweep's start"
+        f" to its end, {c['waited_s']:.1f} s waited after 12a; "
+        f"chiprun_out/dryrun.json, roofline.md")
+    log(f"[12c sweep] chatglm3-6b long_500k on meta in this process: "
+        f"{dec['flops_per_device'] / 1e12:.3f} TFLOP counted "
+        f"(decode_attention by its own formula), the eight kernels' "
+        f"launches after phase 12: {p['launches']}")
 
 
 def stream_kw() -> dict:
@@ -5384,7 +5739,27 @@ def main() -> int:
     log(f"[11] phase 11 in {p11['phase_s']:.1f} s; the eight kernels' "
         f"launches: {p11['launches']} (these families run none)")
 
-    # phase 12: the kernels line and the result line
+    # phase 12: the multi-rank exact search, then the sweep on the host
+    # beside the dry run of the steps phases 10 and 11 measured
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    t0 = time.perf_counter()
+    p12b = distributed_path(dev)
+    t_sweep, sweep = time.perf_counter(), start_sweep()
+    p12 = {"12a": dryrun_check(tr, p11), "12b": p12b,
+           "12c": sweep_path(sweep, t_sweep)}
+    p12["launches"] = counters.read()
+    p12["phase_s"] = time.perf_counter() - t0
+    report_phase12(p12)
+    if any(p12["launches"].values()):
+        raise AssertionError(f"phase 12 launched a kernel: "
+                             f"{p12['launches']}")
+    log(f"[12] phase 12 in {p12['phase_s']:.1f} s; the eight kernels' "
+        f"launches: {p12['launches']} (the dry run counts decode_attention "
+        f"on meta and launches nothing)")
+
+    # phase 13: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -5434,7 +5809,7 @@ def main() -> int:
          "moe_path": moe, "moe_phase_s": moe_s, "rag_twin": rt,
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path, "world_digests": digest_info,
-         "phase9": p9, "train_path": tr, "phase11": p11,
+         "phase9": p9, "train_path": tr, "phase11": p11, "phase12": p12,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -5445,4 +5820,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

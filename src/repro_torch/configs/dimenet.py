@@ -4,7 +4,8 @@ Twin of ``src/repro/configs/dimenet.py``.  Triplet tensors are capped per
 edge (static shapes on power-law graphs): full_graph_sm cap=8,
 minibatch_lg/molecule cap=4, ogb_products cap=2 (the dominant cost of the
 GNN is the triplet bilinear contraction).  The reference's ``_bundle``
-(the lowering on a TPU mesh) is left out.
+variants ``n_layers`` and ``unroll`` (its roofline's unrolled probes) are
+left out: the dry run counts every block.
 """
 from __future__ import annotations
 
@@ -55,6 +56,12 @@ def _cfg_for(shape_name: str) -> DimeNetConfig:
                          d_feat=d["d_feat"], **_BASE)
 
 
+def _bundle(shape_name: str):
+    """One AdamW step at the shape's block dims (``launch/dryrun.py``)."""
+    from repro_torch.configs.families import gnn_bundle
+    return gnn_bundle(_cfg_for(shape_name), GNN_SHAPES[shape_name])
+
+
 SMOKE_CONFIG = DimeNetConfig(n_blocks=2, d_hidden=32, n_bilinear=4,
                              n_spherical=4, n_radial=4, d_feat=16,
                              n_targets=5, task="classification")
@@ -85,6 +92,7 @@ def _smoke(device=None):
 ArchSpec(
     name="dimenet", family="gnn", source="arXiv:2003.03123",
     shapes=GNN_SHAPES,
+    make_bundle=_bundle,
     make_smoke=_smoke,
     config=DimeNetConfig(**_BASE),
 ).register()

@@ -6,8 +6,11 @@ replica of the corpus) + homology validation + the full-database scan for
 the batch, over the paper's 49.2M-passage corpus at contriever dim 768.
 The reference lowers it on a TPU mesh with the corpus sharded; here it runs
 on one card, where ``merge_chunks`` cuts the score rows into chunks as the
-reference's corpus shards are cut.  The reference's ``_bundle`` (abstract
-arguments and shardings for the lowering) is left out.
+reference's corpus shards are cut.  :func:`_bundle` is the cell for
+``launch/dryrun.py``, at :data:`MERGE_CHUNKS` (the reference's default is
+its mesh's device count), with the variant ``corpus_size`` (the card's
+cut); the reference's ``store_dtype`` and ``score_dtype`` (a bf16 corpus
+and scan) are left out, as the step scans in f32.
 
 Ties go to the lower index everywhere (``stable_topk``, ``first_argmax``),
 as ``lax.top_k`` and ``jnp.argmax`` give them.  The homology scores are
@@ -17,12 +20,17 @@ form: no kernel runs here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.configs.base import ArchSpec, ShapeSpec
+from repro_torch.configs.base import ArchSpec, LoweringBundle, ShapeSpec
 from repro_torch.core.homology import homology_scores_batched
 from repro_torch.utils import first_argmax, resolve_device, stable_topk
+
+# the chunk-local top-k's chunks on one card (the reference's default is
+# its mesh's device count); divides the padded 49,201,152 rows
+MERGE_CHUNKS = 48
 
 # corpus rows whose int8 codes are widened to f32 at once by the fuzzy
 # channel (the reference widens the whole replica: 4x its size)
@@ -125,6 +133,24 @@ def has_retrieval_step(corpus, fuzzy_q, fuzzy_scale, cache_doc_emb,
     return ids, accept, best
 
 
+def _bundle(shape_name: str, corpus_size: int | None = None):
+    """The step over ``corpus_size`` rows (default the config's) as
+    ``meta`` arguments of the reference's shapes and dtypes."""
+    from repro_torch.configs.families import (BOOL, F32, I32, meta,
+                                              serving)
+    cfg = HasRagConfig()
+    if corpus_size is not None:
+        cfg = dataclasses.replace(cfg, corpus_size=corpus_size)
+    n, d, k, b = cfg.corpus_size, cfg.d, cfg.k, cfg.query_batch
+    fn = functools.partial(has_retrieval_step, k=k, tau=cfg.tau,
+                           merge_chunks=MERGE_CHUNKS)
+    args = (meta((n, d), F32), meta((n, d), torch.int8), meta((n,), F32),
+            meta((cfg.doc_cap, d), F32), meta((cfg.doc_cap,), I32),
+            meta((cfg.h_max, k), I32), meta((cfg.h_max,), BOOL),
+            meta((b, d), F32))
+    return LoweringBundle(serving(fn), args)
+
+
 def quantize_rows(corpus: torch.Tensor):
     """Per-row symmetric int8 codes of ``corpus`` -> (codes [N,d] int8,
     scale [N] f32): ``scale = max|row| / 127`` (a device divisor, IEEE
@@ -159,7 +185,6 @@ def smoke_args(device=None):
 
 def _smoke(device=None):
     """-> ``(cfg, fn, args)``: the reduced step and its inputs."""
-    import functools
     cfg, args = smoke_args(device)
     fn = functools.partial(has_retrieval_step, k=cfg.k, tau=0.2)
     return cfg, fn, args
@@ -170,6 +195,7 @@ ArchSpec(
     shapes={"retrieve_batch": ShapeSpec(
         "retrieve_batch", "retrieval",
         dict(corpus=49_200_000, d=768, query_batch=64, k=10))},
+    make_bundle=_bundle,
     make_smoke=_smoke,
     config=HasRagConfig(),
 ).register()

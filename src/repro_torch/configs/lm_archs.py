@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ArchSpec
-from repro_torch.configs.families import lm_shapes, lm_smoke
+from repro_torch.configs.families import lm_bundle, lm_shapes, lm_smoke
 from repro_torch.models.transformer import TransformerConfig
 
 # the q-block scan bounds the prefill's score transient
@@ -60,6 +60,7 @@ for _name, _cfg in LM_CONFIGS.items():
     ArchSpec(
         name=_name, family="lm", source="assigned LM pool",
         shapes=lm_shapes(),
+        make_bundle=functools.partial(lm_bundle, _cfg),
         make_smoke=functools.partial(lm_smoke, _cfg),
         config=_cfg,
     ).register()

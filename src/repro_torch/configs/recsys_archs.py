@@ -15,7 +15,8 @@ from __future__ import annotations
 import functools
 
 from repro_torch.configs.base import ArchSpec
-from repro_torch.configs.families import adamw_step, recsys_shapes, to_device
+from repro_torch.configs.families import (adamw_step, recsys_bundle,
+                                          recsys_shapes, to_device)
 from repro_torch.models.recsys import CRITEO_VOCABS, RecsysConfig
 
 # 39-field vocabularies for autoint/deepfm: Criteo's 26 + 13 Avazu-scale
@@ -83,6 +84,7 @@ for _name, _cfg in RECSYS_CONFIGS.items():
     ArchSpec(
         name=_name, family="recsys", source="assigned recsys pool",
         shapes=recsys_shapes(),
+        make_bundle=functools.partial(recsys_bundle, _cfg),
         make_smoke=_smoke_factory(_cfg),
         config=_cfg,
     ).register()

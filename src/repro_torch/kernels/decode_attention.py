@@ -15,7 +15,11 @@ On a CUDA tensor it launches one kernel of ``csrc/decode_attention.cu``
 the SIMT kernel), one CTA per (chunk of S, KV head, batch row), the chunks
 merged inside the same launch, and raises if that fails; on a CPU tensor it
 runs :func:`decode_attention_plain`.  ``decode_attention.launches`` counts
-the kernel's launches (one per call).
+the kernel's launches (one per call).  On a ``meta`` tensor (the dry run,
+``launch/dryrun.py``) it calls :func:`decode_attention_abstract`, an
+operator with the kernel's output and no values, which the dry run counts
+by the kernel's own work (:func:`decode_attention_flops`,
+:func:`decode_attention_reads`); nothing launches.
 """
 from __future__ import annotations
 
@@ -68,6 +72,39 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, d)
 
 
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_attention_abstract(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor,
+                              covered: int) -> torch.Tensor:
+    """The kernel over the first ``covered`` cache positions, as an operator
+    with a shape and no values: it runs only on the ``meta`` device."""
+    raise RuntimeError("decode_attention_abstract runs on the meta device "
+                       "only")
+
+
+@decode_attention_abstract.register_fake
+def _decode_attention_fake(q, k_cache, v_cache, covered):
+    _group(q, k_cache, v_cache)
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def decode_attention_flops(q_shape, k_shape, v_shape, covered: int,
+                           out_shape=None) -> int:
+    """The kernel's operations: a score and a weighted add of D products
+    for each (row, head, covered position), 4 B H D covered."""
+    b, h, d = q_shape
+    return 4 * b * h * d * covered
+
+
+def decode_attention_reads(q, k_cache, v_cache,
+                           covered: int) -> tuple[int, int, int]:
+    """The bytes the kernel reads of ``q``, ``k_cache`` and ``v_cache``:
+    ``q``, and the covered K and V rows once."""
+    b, _, d = q.shape
+    kv = b * covered * k_cache.shape[2] * d * k_cache.element_size()
+    return q.numel() * q.element_size(), kv, kv
+
+
 def uses_mma(dtype: torch.dtype, d: int, g: int) -> bool:
     """Whether the tensor-core kernel takes this shape (bf16, D in MMA_D,
     G <= 32 query heads per KV head, G <= 16 at D = 256)."""
@@ -107,6 +144,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     A sequence with no valid position (``cache_len < 0``) gets zeros, as on
     the TPU, where the plain version gives NaN."""
+    if q.device.type == "meta":
+        s = k_cache.shape[1]
+        covered = s if isinstance(cache_len, torch.Tensor) \
+            else min(max(int(cache_len) + 1, 0), s)
+        return decode_attention_abstract(q, k_cache, v_cache, covered)
     if q.device.type != "cuda":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     g = _group(q, k_cache, v_cache)

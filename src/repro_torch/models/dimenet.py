@@ -43,7 +43,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, seeded_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +134,7 @@ def init_params(cfg: DimeNetConfig, seed: int = 0, device=None) -> dict:
     draws from a ``torch.Generator`` seeded with ``seed``, on ``device``,
     default CUDA), the blocks' leaves stacked ``[n_blocks, ...]``."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = seeded_generator(dev, seed)
     d, dt = cfg.d_hidden, cfg.param_dtype
 
     def dense(shape, scale):

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, stable_topk
+from repro_torch.utils import resolve_device, seeded_generator, stable_topk
 
 # Criteo Kaggle per-field vocabulary sizes (26 categorical fields), the
 # standard DLRM benchmark tables [arXiv:1906.00091].
@@ -178,7 +178,7 @@ def init_params(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
     ``torch.Generator`` seeded with ``seed``: the table first, then each
     kind's leaves in the reference's order."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = seeded_generator(dev, seed)
     dt = cfg.param_dtype
     p: dict = {"table": _normal(g, (padded_vocab(cfg), cfg.embed_dim), 0.05,
                                 dt, dev)}

@@ -37,7 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, seeded_generator
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -134,7 +134,7 @@ def _init_layer(cfg: TransformerConfig, g, dtype, dev, router_dtype) -> dict:
 def _init(cfg: TransformerConfig, seed, device, dtype, router_dtype,
           final_norm_dtype) -> dict:
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = seeded_generator(dev, seed)
     d = cfg.d_model
     return {
         "embed": L.normal(g, (cfg.vocab_size, d), d ** -0.5, dtype, dev),

@@ -10,12 +10,12 @@ concatenated column (the reference's ``lax.top_k``), so the ids equal
 ``chunked_flat_search``'s over the whole corpus.  A ``-1`` id comes back
 only when the whole corpus holds fewer than ``k`` rows.
 
-:func:`sharded_topk_reference` is the mesh-free form, which
-``retrieval/service.py::ShardedMeshBackend`` runs.  The reference's
-``distributed_flat_search`` spreads the shards over a JAX device mesh with
-an all-gather merge; one card has no such mesh, and a
-``torch.distributed`` counterpart is still to be written, so
-:func:`distributed_flat_search` raises.
+:func:`distributed_flat_search` spreads the shards over the ranks of a
+``torch.distributed`` process group, one row block a rank, and merges
+after an all-gather of every rank's ``k`` candidates (the reference's
+``shard_map`` with a tiled ``all_gather`` over its mesh axes).
+:func:`sharded_topk_reference` is the form on one device, which
+``retrieval/service.py::ShardedMeshBackend`` runs without a mesh.
 """
 from __future__ import annotations
 
@@ -36,12 +36,47 @@ def _pad_candidates(s: torch.Tensor, i: torch.Tensor, k: int):
     return s, i
 
 
-def distributed_flat_search(mesh, corpus_axes=("data", "model")):
-    """The multi-device search of the reference; not on one card."""
-    raise NotImplementedError(
-        "distributed_flat_search needs a multi-device mesh; one card runs "
-        "sharded_topk_reference, and a torch.distributed counterpart is "
-        "still to be written")
+def distributed_flat_search(group=None):
+    """-> ``search(corpus_shard, queries, k) -> (scores [B,k] f32, ids [B,k]
+    int32)`` over the ranks of ``group`` (default the world).
+
+    Rank ``r`` passes its own row block ``corpus_shard [N/W, d]`` (rows
+    ``r * N/W`` on) and the same ``queries [B, d]``; every block has the
+    same rows, so N must divide evenly over the W ranks, as the
+    reference's ``shard_map`` requires.  Each rank takes a stable top-k of
+    its block over ``min(k, rows)`` entries, offsets the ids by ``r *
+    rows``, pads to k with ``(-inf, -1)``, and all-gathers scores and ids
+    into ``[B, W*k]`` in rank-major order (the reference's tiled gather
+    along axis 1).  The merge is a stable top-k, ties to the lower column,
+    so to the lower rank; every rank returns the same result.  Tensors
+    live where the group's backend needs them (CPU for gloo, the rank's
+    card for NCCL).
+    """
+    import torch.distributed as dist
+
+    def search(corpus_shard: torch.Tensor, queries: torch.Tensor, k: int):
+        if not dist.is_initialized():
+            raise RuntimeError("distributed_flat_search needs an "
+                               "initialized process group (a one-device "
+                               "mesh runs sharded_topk_reference)")
+        world = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+        rows = corpus_shard.shape[0]
+        s, i = stable_topk(queries @ corpus_shard.T, min(k, rows))
+        i = i.int() + rank * rows                          # global ids
+        s, i = _pad_candidates(s, i, k)
+        b = queries.shape[0]
+        s_all = s.new_empty((world * b, k))
+        i_all = i.new_empty((world * b, k))
+        dist.all_gather_into_tensor(s_all, s.contiguous(), group=group)
+        dist.all_gather_into_tensor(i_all, i.contiguous(), group=group)
+        # [W*B, k] rank blocks -> [B, W*k], rank-major along the columns
+        s_all = s_all.view(world, b, k).transpose(0, 1).reshape(b, -1)
+        i_all = i_all.view(world, b, k).transpose(0, 1).reshape(b, -1)
+        v, pos = stable_topk(s_all, k)                     # the merge
+        return v, torch.gather(i_all, 1, pos)
+
+    return search
 
 
 def sharded_topk_reference(corpus: torch.Tensor, queries: torch.Tensor,

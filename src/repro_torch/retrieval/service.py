@@ -8,8 +8,9 @@ is pluggable: :class:`FullRetrievalBackend` is what the serving layers see.
 ``ShardedMeshBackend``
     The corpus split into ``n_shards`` row blocks, each scanned and the
     candidate sets merged (``retrieval/distributed.py``); ``n_workers``
-    concurrent dispatch slots and ``LatencyModel.shard_scale``.  One card
-    has no device mesh, so ``mesh=`` raises.  Ids equal
+    concurrent dispatch slots and ``LatencyModel.shard_scale``.  A
+    ``DeviceMesh`` of more than one rank (``mesh=``) spreads the blocks over
+    its ranks (``distributed_flat_search``).  Ids equal
     ``LocalFlatBackend``'s.
 ``IVFBackend``
     ANN cloud stage: an IVF index built chunk by chunk
@@ -52,7 +53,8 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.kernels.ops import check_backend
-from repro_torch.retrieval.distributed import sharded_topk_reference
+from repro_torch.retrieval.distributed import (distributed_flat_search,
+                                              sharded_topk_reference)
 from repro_torch.retrieval.flat import chunked_flat_search
 from repro_torch.retrieval.fusion import (hybrid_ann_search,
                                           hybrid_flat_search,
@@ -125,26 +127,47 @@ class LocalFlatBackend(_BackendBase):
 class ShardedMeshBackend(_BackendBase):
     """Row-sharded exact scan with a concurrent-dispatch worker pool.
 
-    The reference's no-mesh path: ``sharded_topk_reference`` models an
-    ``n_shards``-way deployment on one device, and the virtual clock sees
-    ``n_workers`` dispatch slots and ``LatencyModel.shard_scale``.  The
-    reference's ``mesh=`` lowers onto a JAX device mesh; one card has
-    none, so a mesh raises (``retrieval/distributed.py``).
+    ``mesh`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh`` of more
+    than one rank) sets ``n_shards`` to its size: each rank searches only
+    its own row block of the corpus it is given, through
+    ``distributed_flat_search`` over the mesh's group, and every rank gets
+    the same result.  Without a mesh, or on a mesh of one rank, the same
+    candidate-merge math runs on one device through
+    ``sharded_topk_reference``, so the virtual clock can model an
+    ``n_shards``-way deployment (``n_workers`` dispatch slots and
+    ``LatencyModel.shard_scale``).  Either path returns the ids of
+    ``LocalFlatBackend``.  ``corpus`` stays the whole tensor given, which
+    the engines read rows of by id.
     """
 
     def __init__(self, corpus: torch.Tensor, k: int, lat, n_shards: int = 4,
                  n_workers: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedMeshBackend(mesh=...) needs a multi-device mesh; "
-                "one card runs the no-mesh path (mesh=None)")
         self.corpus = corpus
         self.k = k
         self.lat = lat
-        self.n_shards = max(1, int(n_shards))
+        self.mesh = mesh
+        self._dist = None
+        if mesh is not None and mesh.size() > 1:
+            # the mesh decides the physical shard count
+            if mesh.ndim != 1:
+                raise ValueError(f"ShardedMeshBackend: a 1-D mesh, got "
+                                 f"{mesh.ndim} dimensions")
+            self.n_shards = mesh.size()
+            if corpus.shape[0] % self.n_shards:
+                raise ValueError(
+                    f"corpus rows {corpus.shape[0]} must divide evenly over "
+                    f"{self.n_shards} mesh shards")
+            rows = corpus.shape[0] // self.n_shards
+            lo = mesh.get_local_rank() * rows
+            self._shard = corpus[lo:lo + rows]
+            self._dist = distributed_flat_search(mesh.get_group())
+        else:
+            self.n_shards = max(1, int(n_shards))
         self.n_workers = max(1, int(n_workers))
 
     def search(self, q_embs):
+        if self._dist is not None:
+            return self._dist(self._shard, q_embs, self.k)
         return sharded_topk_reference(self.corpus, q_embs, self.k,
                                       n_shards=self.n_shards)
 

@@ -25,6 +25,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def seeded_generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; ``None`` on
+    the ``meta`` device, whose tensors hold no values (the dry run's
+    parameters)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def as_f32(x, device) -> torch.Tensor:
     """``x`` as float32 on ``device`` (float64 input is narrowed)."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)

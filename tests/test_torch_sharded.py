@@ -100,8 +100,10 @@ def test_pad_candidates_and_mesh_raise():
     assert pi.tolist() == [[3, 1, -1, -1]] and pi.dtype == torch.int32
     assert torch.isneginf(ps[0, 2:]).all()
     assert distributed._pad_candidates(s, i, 2)[1] is i
-    with pytest.raises(NotImplementedError, match="mesh"):
-        distributed.distributed_flat_search(object())
+    # no process group: the multi-rank search has no mesh to run on
+    search = distributed.distributed_flat_search()
+    with pytest.raises(RuntimeError, match="process group"):
+        search(torch.zeros((4, 2)), torch.zeros((1, 2)), 2)
 
 
 def test_sharded_backend_matches_local_flat_and_reference():
@@ -126,13 +128,6 @@ def test_sharded_backend_matches_local_flat_and_reference():
     f2 = LocalFlatBackend(_t(c2), 10, lat, chunk=8)
     sh2 = ShardedMeshBackend(_t(c2), 10, lat, n_shards=4)
     assert torch.equal(f2.search(_t(q))[1], sh2.search(_t(q))[1])
-
-
-def test_sharded_backend_mesh_raises():
-    c = torch.zeros((16, 4))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ShardedMeshBackend(c, 4, LatencyModel(), mesh=object())
-    assert ShardedMeshBackend(c, 4, LatencyModel(), n_shards=0).n_shards == 1
 
 
 WORLD = dict(n_entities=300, d=32, seed=0)
