@@ -205,9 +205,30 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    larger of its compute and traffic terms), their roofline written to
    ``chiprun_out/roofline.md`` beside ``dryrun.json``, and one decode
    cell on ``meta`` in this process;
-13. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
-   recsys kernels' on their own: ``decode_attention`` phases 6 and 6b),
-   then the result line
+13. the logical-axis sharding layer on the card's 1x1 ``(data, model)``
+   mesh (``make_local_mesh("cuda")``, NCCL world 1; one card), run after
+   12b on a quiet host: (a) chatglm3-6b's RAG decode at phase 6's shape
+   with every parameter and the KV cache ``DTensor`` leaves, MESH_STEPS
+   steps from phase 6's batch 0: the tokens equal phase 6's,
+   ``decode_attention`` launched once a layer a step through the mesh
+   path, the decode window's wall, device busy and idle share beside
+   phase 6's plain path; (b) 10b's train step with the masters, the
+   AdamW state (``opt_state_logical``) and the batch on the mesh: the
+   first loss within MESH_LOSS_TOL of 10b's, the step time beside 10b's;
+   (c) ``make_compressed_allreduce`` over (b)'s gradients at NCCL world
+   1 (the reduction is the dequantized gradient, the error ``corrected -
+   dequant``, exactly; bytes an element on the wire; time), then at gloo
+   world 4 on the host (each rank's sum is the rank-order sum of the
+   dequantized gradients); (d) ``reshard_tree`` of 10a's lm100m
+   checkpoint onto the mesh, every leaf bit-equal; (e) the 16x16 dry run
+   (a ``fake`` world of 256 ranks in a CPU subprocess with its own time
+   cap, beside 12c's sweep) of 12a's four cells and the three full-depth
+   LM trainings one card cannot hold: per rank its arguments plus temp
+   against 80 GB, collective bytes by kind and the roofline's three
+   terms;
+14. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
+   recsys kernels' on their own: ``decode_attention`` phases 6 and 6b;
+   13a reports its own), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Details of every phase are written to ``chiprun_out/chip_smoke.json``.
@@ -397,6 +418,25 @@ DIST_WORLD = 4                 # gloo ranks on the card's host
 DIST_DEADLINE_S = 120
 SWEEP_CELLS = 41               # the registry's (arch x shape) cells
 SWEEP_JOBS = 6                 # the sweep's processes on the card's host
+# phase 13: the sharding layer on the card's 1x1 mesh
+MESH_STEPS = 16                # 13a's decode steps on the mesh
+MESH_LOSS_TOL = 1e-4           # 13b's first loss against 10b's, relative
+COMPRESS_WORLD = 4             # 13c's gloo ranks on the card's host
+COMPRESS_ELEMENTS = 1 << 22    # 13c's gradient a gloo rank
+MESH_DRYRUN_JOBS = 3           # 13e's processes (beside 12c's sweep)
+MESH_DRYRUN_CAP_S = 420        # 13e's time cap
+# 13e's cells on 16x16: 12a's, and the LM trainings one card cannot hold
+MESH_CELLS = {
+    "12a chatglm3-6b": ("chatglm3-6b", "train_4k",
+                        P12_CELLS["chatglm3-6b"][1]),
+    "12a dlrm-rm2": ("dlrm-rm2", "train_batch", {}),
+    "12a dimenet": ("dimenet", "minibatch_lg", {}),
+    "12a has-rag": ("has-rag", "retrieve_batch",
+                    P12_CELLS["has-rag"][1]),
+    "chatglm3-6b": ("chatglm3-6b", "train_4k", {}),
+    "dbrx-132b": ("dbrx-132b", "train_4k", {}),
+    "arctic-480b": ("arctic-480b", "train_4k", {}),
+}
 SWEEP_WAIT_S = 420             # 12c's longest wait for the sweep to end
 
 
@@ -2744,6 +2784,7 @@ def rag_path(dev, world, service, index, counters) -> dict:
                              "serve_rag's tokens")
     tp, lp = decode_run(params, cfg, prompt, "torch")
     info["replay"] = compare_greedy(tk, lk, tp, lp)
+    info["batch0"] = {"prompt": prompt.cpu(), "tokens": tk.cpu()}   # 13a
     del params
     torch.cuda.empty_cache()
     return info
@@ -4165,6 +4206,7 @@ def train_entry_point(dev) -> dict:
         resumed, lines_r = run_captured(train.main, [
             "--preset", "lm100m", "--steps", str(n + extra), "--ckpt-dir",
             ck])
+        info["checkpoint"] = last_checkpoint(ck)            # for 13d
     whole, lines_w = run_captured(train.train_lm, cfg, n + extra, 8, 128,
                                   None)
     if f"[train] resumed from step {n}" not in lines_r:
@@ -4192,6 +4234,17 @@ def train_entry_point(dev) -> dict:
                 tokens_per_s=8 * 128 / (statistics.median(ms) / 1e3),
                 losses=whole, printed=lines + lines_r)
     return info
+
+
+def last_checkpoint(directory: str) -> dict:
+    """The newest valid checkpoint under ``directory`` as host numpy
+    arrays, by leaf name."""
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(directory)
+    step = mgr.all_steps()[-1]
+    with open(Path(directory) / f"step_{step:012d}" / "manifest.json") as f:
+        names = json.load(f)["leaves"]
+    return mgr.restore(step, dict.fromkeys(names))
 
 
 def remat_checks(dev, cfg_full) -> dict:
@@ -5447,6 +5500,454 @@ def stream_kw() -> dict:
                 p_uncovered=ds["p_uncovered"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the logical-axis sharding layer on the card's mesh
+# ---------------------------------------------------------------------------
+
+def dtensor_leaves(tree) -> list:
+    """Every tensor leaf of ``tree``; raises unless each is a ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+    leaves = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    plain = [tuple(t.shape) for t in leaves if not isinstance(t, DTensor)]
+    if plain:
+        raise AssertionError(f"13: leaves that are no DTensor: {plain[:4]}")
+    return leaves
+
+
+def whole(t) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_decode(dev, mesh, rules, rag: dict, counters) -> dict:
+    """13a: chatglm3-6b's RAG decode at phase 6's shape with every
+    parameter and the cache ``DTensor`` leaves on the card's 1x1 mesh:
+    MESH_STEPS greedy steps from phase 6's batch 0, the tokens equal to
+    phase 6's, ``decode_attention`` launched once a layer a step, and the
+    decode window on the host clock and under the profiler beside phase
+    6's plain path."""
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import first_argmax, tree_distribute
+
+    cfg = LM_CONFIGS["chatglm3-6b"]
+    params = tree_distribute(
+        tf.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16),
+        tf.params_logical(cfg), rules, mesh)
+    n_leaves = len(dtensor_leaves(params))
+    prompt = rag["batch0"]["prompt"].to(dev)
+    want = rag["batch0"]["tokens"][:, :MESH_STEPS + 1]
+    b, n = prompt.shape
+    first = first_argmax(tf.prefill(params, prompt, cfg, rules=rules)).int()
+
+    def window() -> list:
+        cache = tree_distribute(
+            tf.init_kv_cache(cfg, b, n + MESH_STEPS, device=dev),
+            tf.kv_cache_logical(n + MESH_STEPS), rules, mesh)
+        toks = [first]
+        for j in range(MESH_STEPS):
+            lg, cache = tf.decode_step(params, cache, toks[-1], n + j, cfg,
+                                       rules=rules)
+            toks.append(first_argmax(lg).int())
+        dtensor_leaves(cache)
+        return toks
+
+    counters.reset()
+    got = torch.stack([whole(t).cpu() for t in window()], 1)
+    launches = counters.read()
+    if not torch.equal(got, want):
+        raise AssertionError(f"13a: tokens on the mesh differ from phase "
+                             f"6's in rows {(got != want).any(1).nonzero()}")
+    if launches["decode_attention"] != cfg.n_layers * MESH_STEPS:
+        raise AssertionError(f"13a: decode_attention launched "
+                             f"{launches['decode_attention']} times, want "
+                             f"{cfg.n_layers * MESH_STEPS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / MESH_STEPS
+    counts = {}
+    times = device_times(window, 1, warm=False, counts=counts)
+    busy = sum(times.values()) / MESH_STEPS
+    del params
+    torch.cuda.empty_cache()
+    return {"steps": MESH_STEPS, "dtensor_leaves": n_leaves,
+            "launches": launches, "tokens_equal": True,
+            "wall_us_per_step": wall_us, "device_busy_us_per_step": busy,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "launches_per_step": sum(counts.values()) / MESH_STEPS,
+            "plain": {k: rag["profile"][k] for k in (
+                "wall_us_per_step", "device_busy_us_per_step",
+                "device_idle_share", "launches_per_step")}}
+
+
+def mesh_train(dev, mesh, rules, ref: dict) -> tuple[dict, tuple]:
+    """13b: phase 10b's step (chatglm3-6b, TRAIN_DENSE_LAYERS layers,
+    AdamW, TRAIN_N_MICRO micro-batches) with the masters, the AdamW state
+    (``opt_state_logical``) and the batch ``DTensor`` leaves on the mesh:
+    the first loss against 10b's within MESH_LOSS_TOL, the step time
+    beside 10b's.  Returns the record and what 13c reduces."""
+    import functools
+
+    from repro_torch.configs.families import lm_opt_config
+    from repro_torch.configs.lm_archs import LM_CONFIGS
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import opt_init, opt_state_logical
+    from repro_torch.training.train import make_train_step_accum
+    from repro_torch.utils import tree_distribute
+
+    cfg = dataclasses.replace(LM_CONFIGS["chatglm3-6b"],
+                              n_layers=TRAIN_DENSE_LAYERS)
+    opt_cfg = lm_opt_config(cfg)
+    plog = tf.params_logical(cfg)
+    params = tf.init_master_params(cfg, seed=0, device=dev)
+    state = tree_distribute(opt_init(opt_cfg, params),
+                            opt_state_logical(opt_cfg, plog), rules, mesh)
+    params = tree_distribute(params, plog, rules, mesh)
+    batch = tree_distribute(
+        lm_batch(cfg.vocab_size, TRAIN_MICRO * TRAIN_N_MICRO, train_seq(),
+                 dev), {"tokens": ("batch", None), "labels": ("batch", None)},
+        rules, mesh)
+    n_leaves = len(dtensor_leaves((params, state, batch)))
+    lossf = functools.partial(tf.loss_fn, cfg=cfg,
+                              compute_dtype=torch.bfloat16, rules=rules)
+    step = make_train_step_accum(lossf, opt_cfg, TRAIN_N_MICRO)
+    times, metrics = timed_steps(step, params, state, batch, TRAIN_RUN)
+    loss0, ref0 = metrics[0]["loss"], ref["metrics"][0]["loss"]
+    if abs(loss0 - ref0) > MESH_LOSS_TOL * abs(ref0):
+        raise AssertionError(f"13b: first loss {loss0} on the mesh, 10b's "
+                             f"{ref0} (tolerance {MESH_LOSS_TOL}, relative)")
+    rec = {"layers": cfg.n_layers, "dtensor_leaves": n_leaves,
+           "metrics": metrics, "step_s": times,
+           "step_s_median": statistics.median(times[1:]),
+           "ref_loss": ref0, "ref_step_s_median": ref["step_s_median"],
+           "loss_rel_err": abs(loss0 - ref0) / abs(ref0)}
+    micro = {k: v[:TRAIN_MICRO] for k, v in batch.items()}
+    return rec, (lossf, params, micro)
+
+
+def mesh_compress(mesh, grads_of) -> dict:
+    """13c: ``make_compressed_allreduce`` over 13b's gradients at NCCL
+    world 1 (the mesh's ``data`` axis): the reduction equals the
+    dequantized gradient exactly and the error is ``corrected - dequant``;
+    the wire's bytes an element and the time (CUDA events).  Then gloo at
+    world COMPRESS_WORLD on the host."""
+    from repro_torch.training.compression import (dequantize_int8,
+                                                  make_compressed_allreduce,
+                                                  quantize_int8)
+    from repro_torch.utils import mesh_scope
+
+    lossf, params, micro = grads_of
+    with mesh_scope(params):
+        _, grads = loss_grads(lossf, params, micro)
+    fn = make_compressed_allreduce(mesh, dp_axes=("data",))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    n, ms = 0, 0.0
+    for i, g in enumerate(grads):
+        # a leaf at a time: the card holds 13b's masters and gradients
+        err_in = {"g": torch.zeros_like(whole(g))}
+        ev[0].record()
+        red, err = fn({"g": g}, err_in)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms += ev[0].elapsed_time(ev[1])
+        q, scale = quantize_int8(whole(g).float())
+        deq = dequantize_int8(q, scale)
+        if not (torch.equal(red["g"], deq)
+                and torch.equal(err["g"], whole(g).float() - deq)):
+            raise AssertionError(f"13c: leaf {i}: the reduction of one rank "
+                                 f"is not its dequantized gradient")
+        n += deq.numel()
+        del red, err, err_in, q, deq
+    out = {"nccl": {"world": 1, "leaves": len(grads), "elements": n,
+                    "wire_bytes_per_element": (n + 4 * len(grads)) / n,
+                    "f32_bytes_per_element": 4.0, "ms": ms}}
+    del grads
+    torch.cuda.empty_cache()
+    out["gloo"] = compress_gloo()
+    return out
+
+
+def compress_rank(rank: int, world: int, root: str) -> None:
+    """One gloo rank of 13c on the card's host: its gradient (drawn from
+    seed ``rank``) through ``make_compressed_allreduce`` over a ``pod``
+    mesh of every rank; writes the sum to ``{root}/compress{rank}.npz``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.training.compression import make_compressed_allreduce
+    dist.init_process_group("gloo", init_method=f"file://{root}/c_rdzv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("pod",))
+        g = compress_grad(rank)
+        t0 = time.perf_counter()
+        red, _ = make_compressed_allreduce(mesh, ("pod",))(
+            {"g": g}, {"g": torch.zeros_like(g)})
+        ms = (time.perf_counter() - t0) * 1e3
+        np.savez(f"{root}/compress{rank}.npz", red=red["g"].numpy(), ms=ms)
+    finally:
+        dist.destroy_process_group()
+
+
+def compress_grad(rank: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(rank)
+    return torch.randn(COMPRESS_ELEMENTS, generator=g)
+
+
+def compress_gloo() -> dict:
+    """13c's gloo world: each rank's sum equals the plain sum, in rank
+    order, of the COMPRESS_WORLD dequantized gradients."""
+    import torch.multiprocessing as tmp
+
+    from repro_torch.training.compression import (dequantize_int8,
+                                                  quantize_int8)
+    root = ROOT / "chiprun_out" / "p13"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ctx = tmp.start_processes(compress_rank, args=(COMPRESS_WORLD,
+                                                   str(root)),
+                              nprocs=COMPRESS_WORLD, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"13c: {COMPRESS_WORLD} gloo ranks not "
+                                     f"done in {DIST_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    want = None
+    for r in range(COMPRESS_WORLD):
+        deq = dequantize_int8(*quantize_int8(compress_grad(r)))
+        want = deq if want is None else want + deq
+    ms = []
+    for r in range(COMPRESS_WORLD):
+        got = np.load(root / f"compress{r}.npz")
+        if not np.array_equal(got["red"], want.numpy()):
+            raise AssertionError(f"13c gloo: rank {r}'s sum is not the sum "
+                                 f"of the dequantized gradients")
+        ms.append(float(got["ms"]))
+    return {"world": COMPRESS_WORLD, "elements": COMPRESS_ELEMENTS,
+            "ms_per_rank": ms}
+
+
+def mesh_reshard(mesh, rules, ckpt: dict) -> dict:
+    """13d: ``reshard_tree`` of phase 10a's lm100m checkpoint (its
+    parameters and AdamW state) onto the card's mesh: every leaf a
+    ``DTensor``, bit-equal to the checkpoint's."""
+    from repro_torch.checkpoint import flat_logical, reshard_tree
+    from repro_torch.configs.families import lm_opt_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import opt_state_logical
+
+    cfg = train.make_lm100m()
+    plog = tf.params_logical(cfg)
+    logical = {**flat_logical(plog, "params"),
+               **flat_logical(opt_state_logical(lm_opt_config(cfg), plog),
+                              "opt")}
+    if set(logical) != set(ckpt):
+        raise AssertionError(f"13d: checkpoint leaves "
+                             f"{sorted(set(ckpt) ^ set(logical))[:6]} are "
+                             f"not the logical tree's")
+    t0 = time.perf_counter()
+    placed = reshard_tree(ckpt, logical, rules, mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dtensor_leaves(placed)
+    for k, arr in ckpt.items():
+        got = whole(placed[k]).cpu().numpy()
+        if got.dtype != arr.dtype or got.tobytes() != arr.tobytes():
+            raise AssertionError(f"13d: leaf {k} differs after resharding")
+    return {"leaves": len(ckpt), "bytes": sum(a.nbytes for a in
+                                               ckpt.values()),
+            "s": seconds}
+
+
+MESH_DRYRUN = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+cells = json.loads(sys.argv[1])
+recs = list(D._records([(a, s, False, v) for a, s, v in cells],
+                       int(sys.argv[3])))
+json.dump(recs, open(sys.argv[2], "w"), indent=1)
+"""
+
+
+def start_mesh_dryrun() -> tuple:
+    """13e: the 16x16 dry run of MESH_CELLS in a CPU subprocess holding a
+    ``fake`` world of 256 ranks (MESH_DRYRUN_JOBS processes)."""
+    out_dir = ROOT / "chiprun_out"
+    out = out_dir / "dryrun_16x16.json"
+    out.unlink(missing_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    cells = json.dumps([[a, s, v] for a, s, v in MESH_CELLS.values()])
+    with open(out_dir / "dryrun_16x16.log", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", MESH_DRYRUN, cells, str(out),
+             str(MESH_DRYRUN_JOBS)], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    _CHILDREN.append(proc)
+    return proc, out, time.perf_counter()
+
+
+def mesh_dryrun(started: tuple) -> dict:
+    """13e's records: every cell OK on 256 ranks; per rank its arguments
+    plus temp against 80 GB, its collective bytes by kind and the
+    roofline's three terms (predictions, not times)."""
+    from repro_torch.launch import roofline as rl
+    proc, out, t0 = started
+    try:
+        code = proc.wait(timeout=max(1.0, MESH_DRYRUN_CAP_S
+                                     - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"13e: the 16x16 dry run did not end within "
+                             f"{MESH_DRYRUN_CAP_S} s") from None
+    if code:
+        raise AssertionError(f"13e: the 16x16 dry run exited {code} "
+                             f"(dryrun_16x16.log)")
+    recs = json.loads(out.read_text())
+    bad = [f"{r['arch']} {r['shape']}: {r.get('error')}" for r in recs
+           if not r["ok"] or r["n_devices"] != 256]
+    if bad or len(recs) != len(MESH_CELLS):
+        raise AssertionError(f"13e: {len(recs)} records, failed: {bad}")
+    rows = {(r["arch"], r["shape"], json.dumps(r["variant"],
+                                               sort_keys=True)): r
+            for r in rl.analyze(recs)}
+    cells = {}
+    for name, (arch, shape, variant) in MESH_CELLS.items():
+        rec = next(r for r in recs if r["arch"] == arch
+                   and r["shape"] == shape
+                   and (r.get("variant") or {}) == variant)
+        row = rows[(arch, shape, json.dumps(variant, sort_keys=True))]
+        coll = rec["collectives"]
+        cells[name] = {
+            "arch": arch, "shape": shape, "variant": variant,
+            "args_bytes": rec["argument_size_in_bytes"],
+            "temp_bytes": rec["temp_size_in_bytes"],
+            "fits_each_card": rec["fits_each_card"],
+            "collectives": coll, "flops_per_device": rec["flops_per_device"],
+            "torch": rec["torch"],
+            "t_compute_s": row["t_compute_s"],
+            "t_memory_s": row["t_memory_s"],
+            "t_collective_s": row["t_collective_s"],
+            "bound_s": row["bound_s"], "bound_by": row["bound_by"]}
+    return cells
+
+
+def phase13(dev, rag: dict, tr: dict, counters) -> dict:
+    """13a-13d on the card's 1x1 mesh (NCCL world 1), on a quiet host."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import rules_for_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh("cuda")
+    rules = rules_for_mesh(mesh)
+    out = {"mesh": f"{mesh.mesh_dim_names} {tuple(mesh.shape)}",
+           "world": dist.get_world_size()}
+    try:
+        t0 = time.perf_counter()
+        out["13a"] = mesh_decode(dev, mesh, rules, rag, counters)
+        out["13a"]["s"] = time.perf_counter() - t0
+        report_13a(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["13b"], grads_of = mesh_train(dev, mesh, rules, tr["10b"])
+        out["13b"]["s"] = time.perf_counter() - t0
+        report_13b(out["13b"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["13c"] = mesh_compress(mesh, grads_of)
+        out["13c"]["s"] = time.perf_counter() - t0
+        report_13c(out["13c"])
+        del grads_of
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["13d"] = mesh_reshard(mesh, rules, tr["10a"]["checkpoint"])
+        report_13d(out["13d"])
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def report_13a(p: dict) -> None:
+    a = p["13a"]
+    pl = a["plain"]
+    log(f"[13a mesh] chatglm3-6b decode on the card's {p['mesh']} mesh "
+        f"(NCCL world {p['world']}), {a['dtensor_leaves']} DTensor "
+        f"parameters, batch {RAG_BATCH}, prompt {RAG_PROMPT}, {a['steps']} "
+        f"steps: tokens equal phase 6's; decode_attention "
+        f"{a['launches']['decode_attention']} launches; "
+        f"{a['wall_us_per_step']:.1f} us/step wall, device busy "
+        f"{a['device_busy_us_per_step']:.1f} us/step, idle share "
+        f"{a['device_idle_share']:.3f}, {a['launches_per_step']:.0f} "
+        f"launches/step; phase 6's plain path {pl['wall_us_per_step']:.1f} "
+        f"us/step wall, busy {pl['device_busy_us_per_step']:.1f}, idle "
+        f"{pl['device_idle_share']:.3f}, {pl['launches_per_step']:.0f} "
+        f"launches/step; {a['s']:.1f} s")
+
+
+def report_13b(b: dict) -> None:
+    log(f"[13b mesh] chatglm3-6b train step, {b['layers']} layers, AdamW "
+        f"state by opt_state_logical ({b['dtensor_leaves']} DTensor "
+        f"leaves): loss {[round(m['loss'], 5) for m in b['metrics']]} (10b's "
+        f"first {b['ref_loss']:.5f}, relative error {b['loss_rel_err']:.2e},"
+        f" tolerance {MESH_LOSS_TOL}); step {b['step_s_median']:.3f} s "
+        f"(steps {[round(x, 3) for x in b['step_s']]}), 10b's "
+        f"{b['ref_step_s_median']:.3f} s; {b['s']:.1f} s")
+
+
+def report_13c(c: dict) -> None:
+    n, g = c["nccl"], c["gloo"]
+    log(f"[13c compress] make_compressed_allreduce over 13b's gradients "
+        f"({n['leaves']} leaves, {n['elements']} elements) at NCCL world 1:"
+        f" reduction = dequantized gradient, error = corrected - dequant, "
+        f"exactly; {n['wire_bytes_per_element']:.6f} B an element on the "
+        f"wire (f32: {n['f32_bytes_per_element']:.0f}); {n['ms']:.2f} ms "
+        f"(CUDA events); gloo world {g['world']} on the host, "
+        f"{g['elements']} elements a rank: every rank's sum equals the "
+        f"rank-order sum of the dequantized gradients; "
+        f"{[round(x, 1) for x in g['ms_per_rank']]} ms a rank; {c['s']:.1f}"
+        f" s")
+
+
+def report_13d(d: dict) -> None:
+    log(f"[13d reshard] reshard_tree of 10a's lm100m checkpoint "
+        f"({d['leaves']} leaves, {d['bytes'] / 1e9:.2f} GB) onto the "
+        f"card's mesh: every leaf bit-equal, in {d['s']:.2f} s")
+
+
+def report_mesh_dryrun(cells: dict) -> None:
+    for name, c in cells.items():
+        coll = c["collectives"]
+        log(f"[13e dryrun 16x16] {name} ({c['arch']} {c['shape']}"
+            + "".join(f", {k}={v}" for k, v in sorted(c["variant"].items()))
+            + f"), per rank: arguments + temp "
+            f"{(c['args_bytes'] + c['temp_bytes']) / 1e9:.2f} GB of 80 GB "
+            f"(fits {c['fits_each_card']}); collectives "
+            + ", ".join(f"{k} {coll[k] / 1e9:.3f} GB x{coll['n_' + k]}"
+                        for k in ("all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"))
+            + f"; roofline terms (predicted) compute {c['t_compute_s']:.3g}, "
+            f"traffic {c['t_memory_s']:.3g}, collective "
+            f"{c['t_collective_s']:.3g}; bound {c['bound_s']:.3g} "
+            f"({c['bound_by']}); torch {c['torch']}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -5746,20 +6247,35 @@ def main() -> int:
     counters.reset()
     t0 = time.perf_counter()
     p12b = distributed_path(dev)
+    launches_12b = counters.read()
+
+    # phase 13 (13a-13d) on the card's mesh while the host is quiet; then
+    # 13e's 16x16 dry run beside 12c's sweep
+    t13 = time.perf_counter()
+    p13 = phase13(dev, rag, tr, counters)
+    p13["phase_s"] = time.perf_counter() - t13
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters.reset()
+    mesh_run = start_mesh_dryrun()
     t_sweep, sweep = time.perf_counter(), start_sweep()
     p12 = {"12a": dryrun_check(tr, p11), "12b": p12b,
            "12c": sweep_path(sweep, t_sweep)}
-    p12["launches"] = counters.read()
-    p12["phase_s"] = time.perf_counter() - t0
+    p13["13e"] = mesh_dryrun(mesh_run)
+    p12["launches"] = {k: v + launches_12b[k]
+                       for k, v in counters.read().items()}
+    p12["phase_s"] = time.perf_counter() - t0 - p13["phase_s"]
     report_phase12(p12)
+    report_mesh_dryrun(p13["13e"])
     if any(p12["launches"].values()):
-        raise AssertionError(f"phase 12 launched a kernel: "
+        raise AssertionError(f"phase 12 or 13e launched a kernel: "
                              f"{p12['launches']}")
-    log(f"[12] phase 12 in {p12['phase_s']:.1f} s; the eight kernels' "
-        f"launches: {p12['launches']} (the dry run counts decode_attention "
-        f"on meta and launches nothing)")
+    log(f"[12] phase 12 in {p12['phase_s']:.1f} s, 13e beside it; the "
+        f"eight kernels' launches: {p12['launches']} (the dry runs count "
+        f"decode_attention on meta and launch nothing); phase 13a-d in "
+        f"{p13['phase_s']:.1f} s")
 
-    # phase 13: the kernels line and the result line
+    # phase 14: the kernels line and the result line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "topk_search": ("topk_search.cu", "src/repro/kernels/topk_search.py:25",
@@ -5800,6 +6316,8 @@ def main() -> int:
                         "library_ms": t["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    rag.pop("batch0")
+    tr["10a"].pop("checkpoint")
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "tf32": tf32, "build_s": build_s, "build_log": _build.build_log,
@@ -5810,6 +6328,7 @@ def main() -> int:
          "batched_path": bat, "quickstart_twin": qs, "scheduler_path": sp,
          "embedding_bag_path": bag_path, "world_digests": digest_info,
          "phase9": p9, "train_path": tr, "phase11": p11, "phase12": p12,
+         "phase13": p13,
          "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

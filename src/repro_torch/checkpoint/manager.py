@@ -20,8 +20,9 @@ JAX tree:
 
 Leaves are written with ``np.save``.  ``restore`` returns a dict keyed like
 its template: a tensor leaf comes back as a tensor on the template leaf's
-device, anything else as a numpy array.  The reference's ``reshard_tree``
-places a tree on a JAX mesh and has no counterpart here.
+device, anything else as a numpy array.  :func:`reshard_tree` places a
+restored tree (nested, or flat with :func:`flat_logical`'s names) onto any
+mesh, the elastic restart of the reference's ``reshard_tree``.
 """
 from __future__ import annotations
 
@@ -171,3 +172,34 @@ class CheckpointManager:
             if self._validate(path) is not None:
                 return step, self.restore(step, template)
         return None
+
+
+def flat_logical(logical_tree, prefix: str) -> dict:
+    """A logical tree flattened to ``prefix/key/.../leaf`` names (list
+    elements by index), as ``launch/train.py`` names checkpoint leaves."""
+    from repro_torch.utils import is_logical
+    if is_logical(logical_tree):
+        return {prefix: logical_tree}
+    items = (logical_tree.items() if isinstance(logical_tree, Mapping)
+             else enumerate(logical_tree))
+    out = {}
+    for k, v in items:
+        out.update(flat_logical(v, f"{prefix}/{k}"))
+    return out
+
+
+def reshard_tree(tree, logical_tree, rules, mesh):
+    """Elastic restart: place a restored host tree onto a (possibly
+    different) mesh, each leaf a ``DTensor`` by its logical axes (numpy
+    leaves become tensors on the mesh's device type)."""
+    from repro_torch.utils import tree_distribute
+
+    def host(t):
+        if isinstance(t, Mapping):
+            return {k: host(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [host(v) for v in t]
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
+        return t.to(mesh.device_type) if isinstance(t, torch.Tensor) else t
+    return tree_distribute(host(tree), logical_tree, rules, mesh)

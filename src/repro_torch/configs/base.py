@@ -4,13 +4,14 @@ Twin of ``src/repro/configs/base.py``.  Every registered architecture
 maps its input shapes to a :class:`ShapeSpec` and a :class:`LoweringBundle`
 (``make_bundle(shape, **variant)``): the step a cell runs and its
 arguments as ``meta`` tensors with the reference's shapes and dtypes,
-which ``launch/dryrun.py`` runs once without allocating.  It also carries
-a reduced smoke config (``make_smoke(device=None)``, CUDA unless the
-caller asks for the CPU) and its full config.
+which ``launch/dryrun.py`` runs once without allocating, and their
+logical axes (``arg_logical``), which place them on a mesh
+(``make_bundle(shape, rules, mesh, **variant)``; default one card).  It
+also carries a reduced smoke config (``make_smoke(device=None)``, CUDA
+unless the caller asks for the CPU) and its full config.
 
-``LoweringBundle`` has no ``arg_logical`` (the reference's logical
-shardings, for its mesh) and no ``static_argnums`` (a Python call has no
-static arguments to mark).
+``LoweringBundle`` has no ``static_argnums`` (a Python call has no static
+arguments to mark).
 """
 from __future__ import annotations
 
@@ -36,10 +37,12 @@ class ShapeSpec:
 class LoweringBundle:
     """What the dry run needs: ``fn(*abstract_args)``, the arguments
     ``meta`` tensors (nested dicts and lists of them, or host ints); the
-    ``donate_argnums`` arguments are updated in place."""
+    ``donate_argnums`` arguments are updated in place.  ``arg_logical``
+    is the arguments' tree of logical axes (``()`` for a host int)."""
     fn: Callable
     abstract_args: tuple
     donate_argnums: tuple = ()
+    arg_logical: tuple = ()
 
 
 @dataclasses.dataclass
@@ -48,7 +51,8 @@ class ArchSpec:
     family: str             # lm | gnn | recsys | rag
     source: str             # citation tag from the assignment
     shapes: dict[str, ShapeSpec]
-    # the cell's bundle: (shape_name, **variant) -> LoweringBundle
+    # the cell's bundle: (shape_name, rules=None, mesh=None, **variant)
+    # -> LoweringBundle
     make_bundle: Callable[..., LoweringBundle]
     # reduced config smoke: (device=None) -> (cfg, params, opt_state, step,
     # batch), or (cfg, fn, args) for the retrieval step

@@ -3,9 +3,10 @@
 Twin of ``src/repro/configs/dimenet.py``.  Triplet tensors are capped per
 edge (static shapes on power-law graphs): full_graph_sm cap=8,
 minibatch_lg/molecule cap=4, ogb_products cap=2 (the dominant cost of the
-GNN is the triplet bilinear contraction).  The reference's ``_bundle``
-variants ``n_layers`` and ``unroll`` (its roofline's unrolled probes) are
-left out: the dry run counts every block.
+GNN is the triplet bilinear contraction).  ``_bundle`` takes ``rules``
+and ``mesh`` as the reference's does; its variants ``n_layers`` and
+``unroll`` (the reference's roofline's unrolled probes) are left out: the
+dry run counts every block.
 """
 from __future__ import annotations
 
@@ -56,10 +57,11 @@ def _cfg_for(shape_name: str) -> DimeNetConfig:
                          d_feat=d["d_feat"], **_BASE)
 
 
-def _bundle(shape_name: str):
+def _bundle(shape_name: str, rules=None, mesh=None):
     """One AdamW step at the shape's block dims (``launch/dryrun.py``)."""
     from repro_torch.configs.families import gnn_bundle
-    return gnn_bundle(_cfg_for(shape_name), GNN_SHAPES[shape_name])
+    return gnn_bundle(_cfg_for(shape_name), GNN_SHAPES[shape_name], rules,
+                      mesh)
 
 
 SMOKE_CONFIG = DimeNetConfig(n_blocks=2, d_hidden=32, n_bilinear=4,

@@ -6,20 +6,22 @@ Twin of ``src/repro/configs/families.py``.  :func:`lm_bundle`,
 (the LM train step on master weights cast to bf16 at each use; prefill
 and decode on the bf16 serving weights of ``transformer.init_params``;
 :func:`adamw_step`; the recsys forward and ``retrieval_score``) with
-``meta`` arguments of the reference's shapes and dtypes, for
-``launch/dryrun.py``.  The one difference: the reference's prefill and
-decode take its f32 masters and cast them at each use, while the port
-serves bf16 weights (``final_norm`` f32), so those cells' weights are the
-reference's shapes at half its bytes.  Serving steps run under
-``torch.no_grad()``.
+``meta`` arguments of the reference's shapes and dtypes, and their
+logical axes (``arg_logical``), for ``launch/dryrun.py``.  The one
+difference: the reference's prefill and decode take its f32 masters and
+cast them at each use, while the port serves bf16 weights (``final_norm``
+f32), so those cells' weights are the reference's shapes at half its
+bytes.  Serving steps run under ``torch.no_grad()``.
 
-Left out of the bundles: the reference's logical shardings and
-``_batch_ax`` (mesh only), and the variants ``unroll`` (its roofline's
-unrolled probes: the dry run counts every layer), ``moe_dp_groups`` (the
-prefill's hierarchical dispatch over a mesh's data axes) and
-``remat_policy``.  The LM bundle takes ``n_layers``, ``global_batch`` and
-``n_micro`` (gradient accumulation), the variants the card's dry-run
-check uses to match the training step it measured.
+Every bundle takes ``rules`` and ``mesh`` (default None: one card), as
+the reference's do: the step is bound to ``rules``, the batch dim is
+sharded only where it divides the mesh's data-parallel size
+(:func:`_batch_ax`), and on a mesh an MoE dispatches in as many groups as
+that size unless the variant ``moe_dp_groups`` says otherwise.  The LM
+bundle also takes the variants ``remat_policy``, ``n_layers``,
+``global_batch`` and ``n_micro`` (gradient accumulation, one card only);
+the reference's ``unroll`` (its roofline's unrolled probes) is left out:
+the dry run counts every layer.
 """
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ import torch
 
 from repro_torch.configs.base import (META, LoweringBundle, ShapeSpec,
                                       abstract_init)
+from repro_torch.launch.mesh import mesh_axis_size
 from repro_torch.models import dimenet as dn
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
-from repro_torch.training.optimizer import OptConfig, opt_init
+from repro_torch.training.optimizer import (OptConfig, opt_init,
+                                            opt_state_logical)
 from repro_torch.training.train import make_train_step, make_train_step_accum
 from repro_torch.utils import resolve_device
 
@@ -53,6 +57,15 @@ def serving(fn):
         with torch.no_grad():
             return fn(*args)
     return run
+
+
+def _batch_ax(b: int, mesh) -> str | None:
+    """Shard the batch dim only when it divides the DP shard count."""
+    if mesh is None:
+        return "batch"
+    dp = mesh_axis_size(mesh, ("pod", "data"))
+    return "batch" if b % dp == 0 and b >= dp else None
+
 
 # ---------------------------------------------------------------------------
 # LM transformers
@@ -82,8 +95,10 @@ def lm_shapes() -> dict[str, ShapeSpec]:
 
 
 def lm_bundle(cfg: tf.TransformerConfig, shape: ShapeSpec | str,
-              n_layers: int | None = None, global_batch: int | None = None,
-              n_micro: int = 1) -> LoweringBundle:
+              rules=None, mesh=None, n_layers: int | None = None,
+              global_batch: int | None = None, n_micro: int = 1,
+              moe_dp_groups: int | None = None,
+              remat_policy: str | None = None) -> LoweringBundle:
     """One LM cell: the train step (AdamW or Adafactor on the masters,
     bf16 compute; ``n_micro`` > 1 accumulates), or ``prefill`` or one
     ``decode_step`` at cache index ``seq_len - 1`` (every position
@@ -93,26 +108,47 @@ def lm_bundle(cfg: tf.TransformerConfig, shape: ShapeSpec | str,
         shape = lm_shapes()[shape]
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if moe_dp_groups is None and cfg.is_moe and mesh is not None:
+        # production default: hierarchical dispatch over the DP axes
+        moe_dp_groups = mesh_axis_size(mesh, ("pod", "data"))
+    if moe_dp_groups is not None:
+        cfg = dataclasses.replace(cfg, moe_dp_groups=moe_dp_groups)
+    if remat_policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat_policy)
     d = shape.dims
     b, s = global_batch or d["global_batch"], d["seq_len"]
+    bax = _batch_ax(b, mesh)
+    plog = tf.params_logical(cfg)
     if shape.kind == "train":
         params = abstract_init(tf.init_master_params, cfg)
         opt_cfg = lm_opt_config(cfg)
-        lossf = functools.partial(tf.loss_fn, cfg=cfg, compute_dtype=BF16)
+        lossf = functools.partial(tf.loss_fn, cfg=cfg, compute_dtype=BF16,
+                                  rules=rules)
         step = (make_train_step(lossf, opt_cfg) if n_micro == 1
                 else make_train_step_accum(lossf, opt_cfg, n_micro))
         batch = {"tokens": meta((b, s), I32), "labels": meta((b, s), I32)}
-        return LoweringBundle(step, (params, opt_init(opt_cfg, params),
-                                     batch), donate_argnums=(0, 1))
+        return LoweringBundle(
+            step, (params, opt_init(opt_cfg, params), batch),
+            donate_argnums=(0, 1),
+            arg_logical=(plog, opt_state_logical(opt_cfg, plog),
+                         {"tokens": (bax, None), "labels": (bax, None)}))
     params = abstract_init(tf.init_params, cfg)
     if shape.kind == "prefill":
-        fn = functools.partial(tf.prefill, cfg=cfg)
-        return LoweringBundle(serving(fn), (params, meta((b, s), I32)))
+        fn = functools.partial(tf.prefill, cfg=cfg, rules=rules)
+        return LoweringBundle(serving(fn), (params, meta((b, s), I32)),
+                              arg_logical=(plog, (bax, None)))
     if shape.kind == "decode":
+        if bax is None and rules is not None:
+            # tiny-batch decode (long_500k B=1): free the DP axes so the
+            # 500k KV-seq dim can take (data x model) without double-mapping
+            rules = {**rules, "batch": None}
         cache = abstract_init(tf.init_kv_cache, cfg, b, s)
-        fn = functools.partial(tf.decode_step, cfg=cfg)
+        clog = {k: (lg[0], bax) + lg[2:]
+                for k, lg in tf.kv_cache_logical(s).items()}
+        fn = functools.partial(tf.decode_step, cfg=cfg, rules=rules)
         return LoweringBundle(serving(fn), (params, cache, meta((b,), I32),
-                                            s - 1), donate_argnums=(1,))
+                                            s - 1), donate_argnums=(1,),
+                              arg_logical=(plog, clog, (bax,), ()))
     raise ValueError(shape.kind)
 
 
@@ -160,66 +196,94 @@ def adamw_step(loss_fn):
 
 
 def gnn_abstract_batch(n: int, e: int, t: int, d_feat: int, task: str,
-                       n_graphs: int = 1) -> dict:
-    """A DimeNet batch of the given dims as ``meta`` tensors."""
+                       n_graphs: int = 1) -> tuple[dict, dict]:
+    """A DimeNet batch of the given dims as ``meta`` tensors, and its
+    logical axes."""
     batch = {"x": meta((n, d_feat), F32), "pos": meta((n, 3), F32),
              "edge_src": meta((e,), I32), "edge_dst": meta((e,), I32),
              "edge_mask": meta((e,), BOOL),
              "tri_edge_in": meta((t,), I32), "tri_edge_out": meta((t,), I32),
              "tri_mask": meta((t,), BOOL), "node_mask": meta((n,), BOOL)}
+    log = {"x": ("nodes", None), "pos": ("nodes", None),
+           "edge_src": ("edges",), "edge_dst": ("edges",),
+           "edge_mask": ("edges",),
+           "tri_edge_in": ("edges",), "tri_edge_out": ("edges",),
+           "tri_mask": ("edges",), "node_mask": ("nodes",)}
     if task == "classification":
         batch["labels"] = meta((n,), I32)
+        log["labels"] = ("nodes",)
     else:
         batch["graph_ids"] = meta((n,), I32)
         batch["targets"] = meta((n_graphs,), F32)
-    return batch
+        log["graph_ids"] = ("nodes",)
+        log["targets"] = (None,)
+    return batch, log
 
 
-def gnn_bundle(cfg: dn.DimeNetConfig, shape: ShapeSpec) -> LoweringBundle:
+def gnn_bundle(cfg: dn.DimeNetConfig, shape: ShapeSpec, rules=None,
+               mesh=None) -> LoweringBundle:
     """One DimeNet AdamW step at the shape's block dims."""
     d = shape.dims
     params = abstract_init(dn.init_params, cfg)
-    batch = gnn_abstract_batch(d["n_nodes"], d["n_edges"], d["n_triplets"],
-                               d["d_feat"], cfg.task, d.get("n_graphs", 1))
-    opt_cfg, step = adamw_step(functools.partial(dn.loss_fn, cfg=cfg))
+    plog = dn.params_logical(cfg)
+    batch, blog = gnn_abstract_batch(d["n_nodes"], d["n_edges"],
+                                     d["n_triplets"], d["d_feat"], cfg.task,
+                                     d.get("n_graphs", 1))
+    opt_cfg, step = adamw_step(functools.partial(dn.loss_fn, cfg=cfg,
+                                                 rules=rules))
     return LoweringBundle(step, (params, opt_init(opt_cfg, params), batch),
-                          donate_argnums=(0, 1))
+                          donate_argnums=(0, 1),
+                          arg_logical=(plog, opt_state_logical(opt_cfg, plog),
+                                       blog))
 
 
-def recsys_abstract_batch(cfg: rs.RecsysConfig, b: int) -> dict:
-    """A recsys batch of ``b`` examples as ``meta`` tensors."""
+def recsys_abstract_batch(cfg: rs.RecsysConfig, b: int,
+                          mesh=None) -> tuple[dict, dict]:
+    """A recsys batch of ``b`` examples as ``meta`` tensors, and its
+    logical axes."""
+    bax = _batch_ax(b, mesh)
     if cfg.kind == "bert4rec":
         s = cfg.seq_len
-        return {"items": meta((b, s), I32), "labels": meta((b, s), I32),
-                "label_mask": meta((b, s), BOOL), "mask": meta((b, s), BOOL)}
+        names = ("items", "labels", "label_mask", "mask")
+        batch = {"items": meta((b, s), I32), "labels": meta((b, s), I32),
+                 "label_mask": meta((b, s), BOOL), "mask": meta((b, s), BOOL)}
+        return batch, {k: (bax, None) for k in names}
     batch = {"sparse_ids": meta((b, cfg.n_sparse), I32),
              "labels": meta((b,), I32)}
+    log = {"sparse_ids": (bax, None), "labels": (bax,)}
     if cfg.n_dense:
         batch["dense"] = meta((b, cfg.n_dense), F32)
-    return batch
+        log["dense"] = (bax, None)
+    return batch, log
 
 
-def recsys_bundle(cfg: rs.RecsysConfig,
-                  shape: ShapeSpec | str) -> LoweringBundle:
+def recsys_bundle(cfg: rs.RecsysConfig, shape: ShapeSpec | str, rules=None,
+                  mesh=None) -> LoweringBundle:
     """One recsys cell: the top-100 candidate scoring, an AdamW step or a
     serving forward."""
     if isinstance(shape, str):
         shape = recsys_shapes()[shape]
     d = shape.dims
     params = abstract_init(rs.init_params, cfg)
+    plog = rs.params_logical(cfg)
     if shape.kind == "retrieval":
         dim = cfg.embed_dim
         cands = {"query": meta((d["batch"], dim), F32),
                  "candidates": meta((d["n_candidates"], dim), F32)}
-        fn = functools.partial(rs.retrieval_score, cfg=cfg)
-        return LoweringBundle(serving(fn), (params, cands))
-    batch = recsys_abstract_batch(cfg, d["batch"])
+        fn = functools.partial(rs.retrieval_score, cfg=cfg, rules=rules)
+        return LoweringBundle(serving(fn), (params, cands), arg_logical=(
+            plog, {"query": (None, None), "candidates": ("corpus", None)}))
+    batch, blog = recsys_abstract_batch(cfg, d["batch"], mesh)
     if shape.kind == "train":
-        opt_cfg, step = adamw_step(functools.partial(rs.loss_fn, cfg=cfg))
-        return LoweringBundle(step, (params, opt_init(opt_cfg, params),
-                                     batch), donate_argnums=(0, 1))
-    fn = functools.partial(rs.forward, cfg=cfg)
-    return LoweringBundle(serving(fn), (params, batch))
+        opt_cfg, step = adamw_step(functools.partial(rs.loss_fn, cfg=cfg,
+                                                     rules=rules))
+        return LoweringBundle(
+            step, (params, opt_init(opt_cfg, params), batch),
+            donate_argnums=(0, 1),
+            arg_logical=(plog, opt_state_logical(opt_cfg, plog), blog))
+    fn = functools.partial(rs.forward, cfg=cfg, rules=rules)
+    return LoweringBundle(serving(fn), (params, batch),
+                          arg_logical=(plog, blog))
 
 
 def recsys_shapes() -> dict[str, ShapeSpec]:

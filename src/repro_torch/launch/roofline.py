@@ -1,17 +1,26 @@
-"""Roofline of the dry run's records on one H100.
+"""Roofline of the dry run's records on H100s.
 
 Twin of ``src/repro/launch/roofline.py``.  The constants are one NVIDIA
 H100 SXM at 700 W (data sheet): 989e12 FLOP/s for dense bf16 products on
 the tensor cores, 67e12 for f32 (the port keeps TF32 off), 3.35e12 B/s of
-HBM3.  One card: ``CHIPS = 1`` and no interconnect term.  Per cell
-(``launch/dryrun.py``'s record):
+HBM3.  ``CHIPS`` is the record's ``n_devices``: 1 for the one-card
+records, 256 or 512 for one rank of a production mesh, whose counts are
+that rank's.  Per cell (``launch/dryrun.py``'s record):
 
   t_compute_s    = bf16 FLOPs / 989e12 + f32 FLOPs / 67e12     [s]
                    (the counted products, ``flops_by_dtype``)
   t_memory_s     = bytes_per_device / 3.35e12                   [s]
                    (the unfused traffic: each operation's inputs and
                    outputs; a prediction of the eager port, not a bound)
-  t_collective_s = 0
+  t_collective_s = the rank's collective bytes (``collectives.total``,
+                   each collective's result) / LINK_BW, 50e9 B/s: one
+                   400 Gb/s NDR InfiniBand link a GPU (an HGX / DGX H100
+                   node has eight ConnectX-7 400 Gb/s ports, one a GPU:
+                   NVIDIA DGX H100 user guide).  Every axis of both
+                   production meshes spans more than one 8-GPU node (16
+                   ranks a ``data`` or ``model`` row, 2 pods), so each
+                   collective's slowest hop is that link, not NVLink.
+                   0 on one card
   dominant       = the largest of the three
   model_flops_total = :func:`_model_flops`, the reference's analytic
                    useful FLOPs (6 N_active tokens for training, the
@@ -47,7 +56,12 @@ HBM3.  One card: ``CHIPS = 1`` and no interconnect term.  Per cell
                    (:func:`_unrouted_bytes`).  The LM prefill and decode
                    cells are bounds of the port's bf16 serving weights
                    (``configs/families.py::lm_bundle``), not of the
-                   reference's f32 masters
+                   reference's f32 masters.  On a mesh the bound stays a
+                   least time a rank: the products split evenly over the
+                   CHIPS ranks (bound_flops / CHIPS) against the rank's
+                   own bytes (less its share of the unrouted experts)
+  fits_each_card = the record's ``fits_each_card`` (a mesh) or
+                   ``fits_one_card`` (one card), decided by the dry run
 
 A measured step time over ``bound_s`` is at most 1.  The reference's
 probe correction (``corrected``, from unrolled 1- and 2-layer lowerings)
@@ -69,7 +83,7 @@ PEAK_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores (H100 SXM)
 PEAK_F32 = 67e12        # FLOP/s, f32 without TF32 (H100 SXM)
 HBM_BW = 3.35e12        # B/s, HBM3 (H100 SXM)
 
-CHIPS = 1               # one card
+LINK_BW = 50e9          # B/s, one 400 Gb/s NDR InfiniBand link a GPU
 SERVE_ITEMSIZE = 2      # bytes of an LM serving weight (bf16, init_params)
 
 
@@ -206,10 +220,12 @@ def _unrouted_bytes(arch: str, shape: str, cfg=None) -> float:
 
 def bound(rec: dict, family: str, bound_flops: float,
           unrouted: float = 0.0) -> tuple[float, str]:
-    """(bound_s, bound_by) of a record (module docstring)."""
-    t_ops = bound_flops / compute_peak(family)
+    """(bound_s, bound_by) of a record, a least time a rank (module
+    docstring)."""
+    chips = rec.get("n_devices", 1)
+    t_ops = bound_flops / chips / compute_peak(family)
     t_bytes = (rec["argument_read_bytes"] + rec["output_written_bytes"]
-               - unrouted) / HBM_BW
+               - unrouted / chips) / HBM_BW
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -230,22 +246,25 @@ def analyze(records: list[dict]) -> list[dict]:
         t_comp = low / PEAK_BF16 + (flops - low) / PEAK_F32
         traffic = rec.get("bytes_per_device", 0.0) or 0.0
         t_mem = traffic / HBM_BW
-        t_coll = 0.0                    # one card: no interconnect
+        chips = rec.get("n_devices", 1)
+        coll = float((rec.get("collectives") or {}).get("total", 0))
+        t_coll = coll / LINK_BW
         terms = {"compute": t_comp, "memory": t_mem, "collective": t_coll}
         dominant = max(terms, key=terms.get)
         step_time = max(terms.values())
         cfg, dims = cell_config(arch, shape, variant)
         mflops = _model_flops(arch, shape, cfg, dims)
         bflops = _bound_flops(arch, shape, cfg, dims)
-        ratio = mflops / (flops * CHIPS) if flops else 0.0
-        frac = (mflops / CHIPS / step_time) / compute_peak(family) \
+        ratio = mflops / (flops * chips) if flops else 0.0
+        frac = (mflops / chips / step_time) / compute_peak(family) \
             if step_time else 0.0
         bound_s, bound_by = bound(rec, family, bflops,
                                   _unrouted_bytes(arch, shape, cfg))
         out.append({
             "arch": arch, "shape": shape, "variant": variant,
+            "mesh": rec.get("mesh", "1"), "chips": chips,
             "flops_per_chip": flops, "bytes_per_chip": traffic,
-            "coll_bytes_per_chip": 0.0,
+            "coll_bytes_per_chip": coll,
             "t_compute_s": t_comp, "t_memory_s": t_mem,
             "t_collective_s": t_coll,
             "dominant": dominant,
@@ -253,9 +272,11 @@ def analyze(records: list[dict]) -> list[dict]:
             "useful_ratio": ratio,
             "roofline_frac": frac if mflops else None,
             "bound_flops": bflops, "bound_s": bound_s, "bound_by": bound_by,
+            "fits_each_card": rec.get("fits_each_card",
+                                      rec.get("fits_one_card")),
             "note": OVER_ONE if ratio > 1 else "",
         })
-    out.sort(key=lambda r: (r["arch"], r["shape"],
+    out.sort(key=lambda r: (r["arch"], r["shape"], r["chips"],
                             json.dumps(r["variant"], sort_keys=True)))
     return out
 
@@ -271,6 +292,8 @@ def to_markdown(rows: list[dict]) -> str:
         mark = "*" if r["note"] else ""
         shape = r["shape"] + "".join(f", {k}={v}" for k, v in
                                      sorted(r["variant"].items()))
+        if r["chips"] > 1:
+            shape += f" @ {r['mesh']}"
         lines.append(
             f"| {r['arch']} | {shape} | {r['t_compute_s']:.2e} "
             f"| {r['t_memory_s']:.2e} | {r['t_collective_s']:.2e} "

@@ -22,7 +22,12 @@ Twin of ``src/repro/models/dimenet.py``:
     the ``[T, b*d]`` outer product with ``w_bil`` as ``[b*d, f]``; the
     ``[T, d, d]`` tensor is never built.
 
-Left out: ``params_logical`` (sharding only) and ``rules``.
+:func:`params_logical` names the parameters' logical axes, and
+``rules`` (default None) reaches the reference's constraints: on a mesh
+the node and edge activations shard over ``nodes`` / ``edges``, and the
+geometry, the gathers by edge and triplet ids and the segment sums run on
+whole tensors (``utils.run_replicated``), their results sliced back to
+the edge layout.
 
 Inputs (all fixed-shape, masked):
   x          [N, d_feat]   node features
@@ -43,7 +48,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils import resolve_device, seeded_generator
+from repro_torch.utils import (constrain, is_dtensor, logsumexp_last,
+                               merge_dims, mesh_scope, resolve_device,
+                               run_replicated, seeded_generator, take_last)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +163,24 @@ def init_params(cfg: DimeNetConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def params_logical(cfg: DimeNetConfig) -> dict:
+    blk = {
+        "w_msg": (None, "fsdp", "d_ff"),
+        "w_sbf": (None, None, None),
+        "w_bil": (None, None, "fsdp", "d_ff"),
+        "w_upd1": (None, "fsdp", "d_ff"),
+        "w_upd2": (None, "d_ff", "fsdp"),
+        "w_out_edge": (None, "fsdp", "d_ff"),
+        "w_out": (None, "fsdp", None),
+    }
+    return {
+        "feat_proj": (None, "d_ff"),   # d_feat (e.g. 1433) not shard-divisible
+        "rbf_proj": (None, "d_ff"),
+        "msg_init": ("fsdp", "d_ff"),
+        "blocks": blk,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -164,37 +189,37 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return x.new_zeros((n,) + x.shape[1:]).index_add(0, seg, x)
 
 
-def _block(bp: dict, m, acc, sbf, t_in, t_out, tmask, emask, dst, n):
+def _block(bp: dict, m, acc, sbf, t_in, t_out, tmask, emask, dst, n,
+           rules=None):
     e = m.shape[0]
     # directional message: gather m over incoming triplet edges
-    m_kj = F.embedding(t_in, m) @ bp["w_msg"]                # [T, d]
+    m_kj = run_replicated(F.embedding, t_in, m)
+    m_kj = constrain(m_kj, ("edges", None), rules) @ bp["w_msg"]  # [T, d]
     s = sbf @ bp["w_sbf"]                                    # [T, b]
     nb, d, f = bp["w_bil"].shape
-    inter = (s[:, :, None] * m_kj[:, None, :]).reshape(-1, nb * d) \
-        @ bp["w_bil"].reshape(nb * d, f)                     # [T, f]
+    if is_dtensor(m_kj):
+        inter = merge_dims(s[:, :, None] * m_kj[:, None, :], 1) \
+            @ merge_dims(bp["w_bil"], 0)                     # [T, f]
+    else:
+        inter = (s[:, :, None] * m_kj[:, None, :]).reshape(-1, nb * d) \
+            @ bp["w_bil"].reshape(nb * d, f)                 # [T, f]
     inter = inter * tmask[:, None]
-    agg = _segment_sum(inter, t_out, e)                      # [E, d]
+    agg = run_replicated(_segment_sum, inter, t_out, e)              # [E, d]
+    agg = constrain(agg, ("edges", None), rules)
     m_new = F.silu((m + agg) @ bp["w_upd1"])
     m_new = F.silu(m_new @ bp["w_upd2"]) + m                 # residual
     m_new = m_new * emask[:, None]
+    m_new = constrain(m_new, ("edges", None), rules)
     # output block: edges -> nodes
     eo = F.silu(m_new @ bp["w_out_edge"]) * emask[:, None]
-    node = _segment_sum(eo, dst, n)                          # [N, d]
+    node = run_replicated(_segment_sum, eo, dst, n)                  # [N, d]
+    node = constrain(node, ("nodes", None), rules)
     return m_new, acc + node @ bp["w_out"]
 
 
-def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
-    """Returns per-node outputs [N, n_targets] (sum over output blocks),
-    f32 throughout, as the reference's only callers run it."""
-    x = batch["x"]
-    pos = batch["pos"]
-    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
-    emask = batch["edge_mask"].float()
-    t_in, t_out = batch["tri_edge_in"].long(), batch["tri_edge_out"].long()
-    tmask = batch["tri_mask"].float()
-    n = x.shape[0]
-
-    # geometry
+def _geometry(pos, src, dst, t_in, t_out, cfg: DimeNetConfig):
+    """The radial basis of every edge [E, R] and the spherical basis of
+    every triplet [T, S*R]."""
     vec = pos[dst] - pos[src]                                # [E,3]
     dist = torch.linalg.norm(vec + 1e-9, dim=-1)             # [E]
     rbf = bessel_rbf(dist, cfg.n_radial, cfg.cutoff)
@@ -205,35 +230,62 @@ def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
         + 1e-9)
     sbf = sbf_basis(dist[t_in], cos_a, cfg.n_spherical, cfg.n_radial,
                     cfg.cutoff)                              # [T, SR]
-
-    h = x @ params["feat_proj"]                              # [N, d]
-    r = rbf @ params["rbf_proj"]                             # [E, d]
-    m = torch.cat([F.embedding(src, h), F.embedding(dst, h), r], dim=-1)
-    m = F.silu(m @ params["msg_init"])                       # [E, d]
-    m = m * emask[:, None]
-
-    acc = x.new_zeros((n, cfg.n_targets))
-    blocks = params["blocks"]
-    for i in range(blocks["w_msg"].shape[0]):
-        bp = {k: blocks[k][i] for k in BLOCK_LEAVES}
-        m, acc = _block(bp, m, acc, sbf, t_in, t_out, tmask, emask, dst, n)
-    return acc
+    return rbf, sbf
 
 
-def loss_fn(params, batch, cfg: DimeNetConfig):
+def forward(params, batch, cfg: DimeNetConfig, rules=None) -> torch.Tensor:
+    """Returns per-node outputs [N, n_targets] (sum over output blocks),
+    f32 throughout, as the reference's only callers run it."""
+    with mesh_scope(params, batch):
+        x = batch["x"]
+        src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+        emask = batch["edge_mask"].float()
+        t_in = batch["tri_edge_in"].long()
+        t_out = batch["tri_edge_out"].long()
+        tmask = batch["tri_mask"].float()
+        n = x.shape[0]
+
+        rbf, sbf = run_replicated(lambda *a: _geometry(*a, cfg), batch["pos"], src,
+                          dst, t_in, t_out)
+        rbf = constrain(rbf, ("edges", None), rules)
+        sbf = constrain(sbf, ("edges", None), rules)
+
+        h = x @ params["feat_proj"]                          # [N, d]
+        h = constrain(h, ("nodes", None), rules)
+        r = rbf @ params["rbf_proj"]                         # [E, d]
+        hs, hd = run_replicated(lambda a, b, t: (F.embedding(a, t),
+                                         F.embedding(b, t)), src, dst, h)
+        m = torch.cat([constrain(hs, ("edges", None), rules),
+                       constrain(hd, ("edges", None), rules), r], dim=-1)
+        m = F.silu(m @ params["msg_init"])                   # [E, d]
+        m = m * emask[:, None]
+        m = constrain(m, ("edges", None), rules)
+
+        acc = x.new_zeros((n, cfg.n_targets))
+        blocks = params["blocks"]
+        for i in range(blocks["w_msg"].shape[0]):
+            bp = {k: blocks[k][i] for k in BLOCK_LEAVES}
+            m, acc = _block(bp, m, acc, sbf, t_in, t_out, tmask, emask, dst,
+                            n, rules)
+        return constrain(acc, ("nodes", None), rules)
+
+
+def loss_fn(params, batch, cfg: DimeNetConfig, rules=None):
     """Classification: masked node cross-entropy; regression: the mean
     squared error of graph energies pooled by ``graph_ids`` ->
     ``(loss, {"loss": loss})``."""
-    out = forward(params, batch, cfg)
-    mask = batch["node_mask"].float()
-    if cfg.task == "classification":
-        logz = torch.logsumexp(out, dim=-1)
-        gold = out.gather(-1, batch["labels"].long()[:, None])[:, 0]
-        loss = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    else:
-        # molecule energy: graph-pooled regression via graph_ids
-        n_graphs = batch["targets"].shape[0]
-        energy = _segment_sum(out[:, 0] * mask, batch["graph_ids"].long(),
-                              n_graphs)
-        loss = torch.mean((energy - batch["targets"]) ** 2)
-    return loss, {"loss": loss}
+    with mesh_scope(params, batch):
+        out = forward(params, batch, cfg, rules)
+        mask = batch["node_mask"].float()
+        if cfg.task == "classification":
+            logz = logsumexp_last(out)
+            gold = take_last(out, batch["labels"])
+            loss = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(),
+                                                                  1.0)
+        else:
+            # molecule energy: graph-pooled regression via graph_ids
+            n_graphs = batch["targets"].shape[0]
+            energy = run_replicated(_segment_sum, out[:, 0] * mask,
+                            batch["graph_ids"].long(), n_graphs)
+            loss = torch.mean((energy - batch["targets"]) ** 2)
+        return loss, {"loss": loss}

@@ -15,8 +15,12 @@ attention and block lists as Python lists of leaves of different shapes;
 the port's optimizer reads a list in a tree as one stacked leaf, so here
 they are dicts keyed by position (``"0"``, ``"1"``, ...).
 
-Left out: ``rules`` and the sharding constraints (one card has no mesh),
-and ``params_logical`` / ``_mlp_chain_logical``, which name mesh axes only.
+:func:`params_logical` names the parameters' logical axes (the tables
+shard their rows over ``emb_vocab``, the small MLPs and attention stay
+replicated); ``rules`` (default None) reaches the reference's constraints
+and runs the forward sharded on ``DTensor`` parameters.  The lookups keep
+``F.embedding``, which has a row-sharded rule; the dot interaction's pair
+gather and the top-k run on whole tensors (``utils.run_replicated``).
 
 Shapes (per the assignment):
   train_batch    batch=65536          training (logloss)
@@ -34,7 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, seeded_generator, stable_topk
+from repro_torch.utils import (constrain, logsumexp_last, mesh_scope,
+                               replicated, resolve_device, run_replicated,
+                               seeded_generator, settled, stable_topk,
+                               take_last)
 
 # Criteo Kaggle per-field vocabulary sizes (26 categorical fields), the
 # standard DLRM benchmark tables [arXiv:1906.00091].
@@ -124,8 +131,9 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     """Single-valued categorical lookup: table [V_total, D], ids [B, F]
     per-field local ids, offsets [F] -> [B, F, D].  A gather through
     ``F.embedding``, whose backward sums each row's duplicates in parallel
-    (Zipf ids repeat the head rows across the batch)."""
-    return F.embedding(ids + offsets[None, :], table)
+    (Zipf ids repeat the head rows across the batch).  A row-sharded
+    ``DTensor`` table's partial rows are reduced at once."""
+    return settled(F.embedding(ids + offsets[None, :], table))
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -155,6 +163,12 @@ def _init_mlp_chain(g, dims: Sequence[int], dtype, dev) -> dict:
                                   dims[i] ** -0.5, dtype, dev),
                      "b": torch.zeros(dims[i + 1], dtype=dtype, device=dev)}
             for i in range(len(dims) - 1)}
+
+
+def _mlp_chain_logical(n: int) -> dict:
+    # CTR MLPs are KB-to-MB scale: replicate (sharding a 13x512 layer over a
+    # 16-way axis is impossible and pointless; the tables carry the memory)
+    return {str(i): {"w": (None, None), "b": (None,)} for i in range(n)}
 
 
 def _mlp_chain(layers: dict, x: torch.Tensor,
@@ -223,33 +237,71 @@ def init_params(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
     return p
 
 
+def params_logical(cfg: RecsysConfig) -> dict:
+    """Logical axes of :func:`init_params`' tree (the reference's
+    ``params_logical``, lists as the port's position-keyed dicts)."""
+    p: dict = {"table": ("emb_vocab", None)}
+    if cfg.kind == "dlrm":
+        p["bot"] = _mlp_chain_logical(len(cfg.bot_mlp))
+        p["top"] = _mlp_chain_logical(len(cfg.top_mlp))
+    elif cfg.kind == "deepfm":
+        p["w1"] = ("emb_vocab",)
+        p["deep"] = _mlp_chain_logical(len(cfg.mlp) + 1)
+    elif cfg.kind == "autoint":
+        p["attn"] = {str(i): {"wq": (None, None, None),
+                              "wk": (None, None, None),
+                              "wv": (None, None, None), "wres": (None, None)}
+                     for i in range(cfg.n_attn_layers)}
+        p["out"] = (None,)
+    elif cfg.kind == "bert4rec":
+        p["pos_embed"] = (None, None)
+        p["blocks"] = {str(i): {"attn_norm": L.rmsnorm_logical(),
+                                "mlp_norm": L.rmsnorm_logical(),
+                                "attn": L.attention_logical(False),
+                                "mlp": L.mlp_logical(False)}
+                       for i in range(cfg.n_blocks)}
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Forward and loss
 # ---------------------------------------------------------------------------
 
-def _dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
-    """DLRM dot interaction: [B, F, D] -> strictly-upper-tri dots
-    [B, F(F-1)/2], in ``triu_indices(F, k=1)``'s row-major order."""
-    f = vecs.shape[1]
-    z = torch.bmm(vecs, vecs.transpose(1, 2))                   # [B, F, F]
-    iu, ju = torch.triu_indices(f, f, 1, device=vecs.device)
+def _pairs(z: torch.Tensor) -> torch.Tensor:
+    """The strictly-upper-triangular entries of ``z [B, F, F]`` in
+    ``triu_indices(F, k=1)``'s row-major order -> [B, F(F-1)/2]."""
+    f = z.shape[1]
+    iu, ju = torch.triu_indices(f, f, 1, device=z.device)
     return z[:, iu, ju]
 
 
-def _bert4rec(params, batch, cfg: RecsysConfig) -> torch.Tensor:
+def _dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
+    """DLRM dot interaction: [B, F, D] -> strictly-upper-tri dots
+    [B, F(F-1)/2]; on a ``DTensor`` the pair gather runs whole."""
+    return run_replicated(_pairs, torch.bmm(vecs, vecs.transpose(1, 2)))
+
+
+def _bert4rec(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
     table = params["table"]
     items = batch["items"]                                      # [B, S]
     b, s = items.shape
-    x = F.embedding(items, table) + params["pos_embed"][None, :s]
+    # the item table (MBs) is gathered whole for the lookup: it is also the
+    # output projection, and a row-sharded lookup's masked partial gradient
+    # cannot be added to that product's
+    x = F.embedding(items, replicated(table)) + params["pos_embed"][None, :s]
+    x = constrain(x, ("batch", "seq", None), rules)
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     for i in range(cfg.n_blocks):
         blk = params["blocks"][str(i)]
         h, _ = L.attention(blk["attn"], L.rmsnorm(blk["attn_norm"], x), pos,
                            causal=False, rope_theta=10000.0,
-                           rope_fraction=0.0, mask=batch.get("mask"))
+                           rope_fraction=0.0, mask=batch.get("mask"),
+                           rules=rules, head_tp=False)
         x = x + h
-        x = x + L.mlp(blk["mlp"], L.rmsnorm(blk["mlp_norm"], x))
+        x = x + L.mlp(blk["mlp"], L.rmsnorm(blk["mlp_norm"], x), rules)
+    x = constrain(x, ("batch", None, None), rules)
     logits = x @ table.T                                        # [B, S, V]
+    logits = constrain(logits, ("batch", None, "emb_vocab"), rules)
     if table.shape[0] > cfg.total_vocab:   # drop pad-row logits
         logits = logits[..., :cfg.total_vocab]
     return logits
@@ -272,45 +324,54 @@ def _autoint(params, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, -1) @ params["out"]
 
 
-def forward(params, batch, cfg: RecsysConfig) -> torch.Tensor:
+def forward(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
     """CTR kinds -> logits [B]; bert4rec -> logits [B, S, V_items].  f32
     throughout, as the reference's only callers run it."""
-    if cfg.kind == "bert4rec":
-        return _bert4rec(params, batch, cfg)
-    table = params["table"]
-    ids = batch["sparse_ids"]                                   # [B, F]
-    offsets = cfg.field_offsets(ids.device)
-    vecs = embedding_lookup(table, ids, offsets)                # [B, F, D]
-    if cfg.kind == "dlrm":
-        dense = batch["dense"]                                  # [B, 13]
-        bot = _mlp_chain(params["bot"], dense, final_act=True)
-        allv = torch.cat([bot[:, None, :], vecs], dim=1)
-        feat = torch.cat([_dot_interaction(allv), bot], dim=-1)
-        return _mlp_chain(params["top"], feat)[:, 0]
-    if cfg.kind == "deepfm":
-        w1 = params["w1"][:, None]
-        first = F.embedding(ids + offsets[None, :], w1)[..., 0].sum(dim=-1)
-        sum_v = vecs.sum(dim=1)
-        fm = 0.5 * (sum_v ** 2 - (vecs ** 2).sum(dim=1)).sum(dim=-1)
-        deep = _mlp_chain(params["deep"],
-                          vecs.reshape(vecs.shape[0], -1))[:, 0]
-        return first + fm + deep
-    if cfg.kind == "autoint":
-        return _autoint(params, vecs)
-    raise ValueError(cfg.kind)
+    with mesh_scope(params):
+        if cfg.kind == "bert4rec":
+            return _bert4rec(params, batch, cfg, rules)
+        table = params["table"]
+        ids = batch["sparse_ids"]                               # [B, F]
+        offsets = cfg.field_offsets(ids.device)
+        vecs = embedding_lookup(table, ids, offsets)            # [B, F, D]
+        vecs = constrain(vecs, ("batch", None, None), rules)
+        if cfg.kind == "dlrm":
+            dense = batch["dense"]                              # [B, 13]
+            bot = _mlp_chain(params["bot"], dense, final_act=True)
+            allv = torch.cat([bot[:, None, :], vecs], dim=1)
+            feat = torch.cat([_dot_interaction(allv), bot], dim=-1)
+            logit = _mlp_chain(params["top"], feat)[:, 0]
+        elif cfg.kind == "deepfm":
+            w1 = params["w1"].unsqueeze(1)
+            first = settled(F.embedding(ids + offsets[None, :], w1))[
+                ..., 0].sum(dim=-1)
+            sum_v = vecs.sum(dim=1)
+            fm = 0.5 * (sum_v ** 2 - (vecs ** 2).sum(dim=1)).sum(dim=-1)
+            deep = _mlp_chain(params["deep"],
+                              vecs.reshape(vecs.shape[0], -1))[:, 0]
+            logit = first + fm + deep
+        elif cfg.kind == "autoint":
+            logit = _autoint(params, vecs)
+        else:
+            raise ValueError(cfg.kind)
+        return constrain(logit, ("batch",), rules)
 
 
-def loss_fn(params, batch, cfg: RecsysConfig):
+def loss_fn(params, batch, cfg: RecsysConfig, rules=None):
     """bert4rec: masked-item cross-entropy over the label mask; the CTR
     kinds: the mean logistic loss, written term for term as the reference
     writes it, ``max(l, 0) - l*y + log1p(exp(-|l|))`` ->
     ``(loss, {"loss": loss})``."""
-    out = forward(params, batch, cfg)
+    with mesh_scope(params):
+        return _loss(forward(params, batch, cfg, rules), batch, cfg)
+
+
+def _loss(out, batch, cfg: RecsysConfig):
     if cfg.kind == "bert4rec":
         logits = out.float()
         lmask = batch["label_mask"].float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        logz = logsumexp_last(logits)
+        gold = take_last(logits, batch["labels"])
         loss = ((logz - gold) * lmask).sum() / torch.clamp_min(lmask.sum(),
                                                                 1.0)
     else:
@@ -325,8 +386,13 @@ def loss_fn(params, batch, cfg: RecsysConfig):
 # Retrieval scoring (retrieval_cand shape): two-tower over 1M candidates
 # ---------------------------------------------------------------------------
 
-def retrieval_score(params, batch, cfg: RecsysConfig, top_k: int = 100):
+def retrieval_score(params, batch, cfg: RecsysConfig, top_k: int = 100,
+                    rules=None):
     """Score the queries against every candidate embedding -> the top-k
     ``(vals [B, k], idx [B, k] int64)``, ties to the lower candidate.
-    ``batch = {query [B, D], candidates [C, D]}``."""
-    return stable_topk(batch["query"] @ batch["candidates"].T, top_k)
+    ``batch = {query [B, D], candidates [C, D]}``; the candidates shard
+    over ``corpus``."""
+    with mesh_scope(params, batch):
+        cands = constrain(batch["candidates"], ("corpus", None), rules)
+        scores = constrain(batch["query"] @ cands.T, (None, "corpus"), rules)
+        return stable_topk(scores, top_k)

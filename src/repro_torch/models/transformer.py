@@ -5,7 +5,12 @@ Twin of ``src/repro/models/transformer.py``: ``TransformerConfig``,
 ``init_params``, ``forward_hidden``, ``forward``, ``loss_fn``, ``prefill``
 and the KV-cache pair ``init_kv_cache`` / ``decode_step``.
 ``forward_hidden`` and ``forward`` return the MoE aux loss beside their
-output, as the reference's do.
+output, as the reference's do.  :func:`params_logical` and
+:func:`kv_cache_logical` name the logical axes of the parameters and the
+cache; ``rules`` (default None) reaches the reference's constraints in
+every entry point, which run sharded when the parameters are ``DTensor``
+leaves on a mesh (``utils.tree_distribute``).  The config's ``head_tp``
+and ``head_pad_to`` act only under rules.
 
 Parameters are a dict with the reference's names and layouts, but with one
 dict per layer in ``params["layers"]`` instead of leaves stacked over
@@ -37,7 +42,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, seeded_generator
+from repro_torch.utils import (constrain, is_dtensor, logsumexp_last,
+                               mesh_scope, resolve_device, seeded_generator,
+                               take_last)
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -63,6 +70,9 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     norm_eps: float = 1e-5
     attn_block_q: int = 0          # q-block scan size (long prefill)
+    head_tp: bool = True           # shard attention WEIGHTS by head
+    head_pad_to: int = 0           # pad activation heads to a TP-divisible
+                                   # count when n_heads % tp != 0
     param_dtype: torch.dtype = torch.float32   # the training masters'
     remat: bool = True             # recompute each block in the backward
     # 'full' recomputes everything; 'dots' saves the products without
@@ -165,28 +175,58 @@ def init_master_params(cfg: TransformerConfig, seed: int = 0, device=None,
     return _init(cfg, seed, device, dtype, torch.float32, dtype)
 
 
+def params_logical(cfg: TransformerConfig) -> dict:
+    """Logical axes of the parameters, the tree of :func:`init_params`:
+    one dict a layer in ``layers`` (the reference's stacked leaves without
+    their leading, never sharded, layer dim)."""
+    layer = {"attn_norm": L.rmsnorm_logical(),
+             "mlp_norm": L.rmsnorm_logical(),
+             "attn": L.attention_logical(cfg.head_tp)}
+    if cfg.is_moe:
+        layer["moe"] = L.moe_logical()
+    if not cfg.is_moe or cfg.moe_dense_residual:
+        layer["mlp"] = L.mlp_logical(cfg.gated_mlp)
+    return {
+        # embed: rows replicated, d_model FSDP'd -- a vocab-sharded table
+        # makes the token gather all-gather the whole table
+        "embed": (None, "fsdp"),
+        "unembed": ("fsdp", "vocab"),
+        "final_norm": L.rmsnorm_logical(),
+        "layers": [layer] * cfg.n_layers,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill, training) and the loss
 # ---------------------------------------------------------------------------
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``tokens``: an index on plain tensors, ``F.embedding``
+    (which has a sharding rule) on a ``DTensor`` table."""
+    if is_dtensor(table):
+        return torch.nn.functional.embedding(tokens.long(), table)
+    return table[tokens.long()]
+
+
 def _layer_fn(cfg: TransformerConfig, x, positions, lp, kv_cache=None,
-              cache_index=None, backend=None, dp_groups=1):
+              cache_index=None, backend=None, dp_groups=1, rules=None):
     """One block -> (x, cache, the MoE aux loss as an f32 scalar)."""
     h, cache = L.attention(
         lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), positions,
         causal=True, rope_theta=cfg.rope_theta,
         rope_fraction=cfg.rope_fraction, kv_cache=kv_cache,
-        cache_index=cache_index, block_q=cfg.attn_block_q, backend=backend)
+        cache_index=cache_index, block_q=cfg.attn_block_q, backend=backend,
+        rules=rules, head_tp=cfg.head_tp, head_pad_to=cfg.head_pad_to)
     x = x + h
     hn = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     if cfg.is_moe:
         h, aux = L.moe(lp["moe"], hn, top_k=cfg.moe_top_k,
                        capacity_factor=cfg.capacity_factor,
-                       dp_groups=dp_groups)
+                       dp_groups=dp_groups, rules=rules)
         if cfg.moe_dense_residual:
-            h = h + L.mlp(lp["mlp"], hn)
+            h = h + L.mlp(lp["mlp"], hn, rules)
     else:
-        h = L.mlp(lp["mlp"], hn)
+        h = L.mlp(lp["mlp"], hn, rules)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, cache, aux
 
@@ -198,11 +238,12 @@ def _cast(tree: dict, dtype) -> dict:
             for k, v in tree.items()}
 
 
-def _train_block(cfg: TransformerConfig, compute_dtype, x, positions, lp):
+def _train_block(cfg: TransformerConfig, compute_dtype, rules, x,
+                 positions, lp):
     """One block on master weights, cast to ``compute_dtype`` inside it (so
     a recomputed block casts them again) -> (x, aux)."""
     x, _, aux = _layer_fn(cfg, x, positions, _cast(lp, compute_dtype),
-                          dp_groups=cfg.moe_dp_groups)
+                          dp_groups=cfg.moe_dp_groups, rules=rules)
     return x, aux
 
 
@@ -216,8 +257,9 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _run_block(cfg: TransformerConfig, compute_dtype, x, positions, lp):
-    block = functools.partial(_train_block, cfg, compute_dtype)
+def _run_block(cfg: TransformerConfig, compute_dtype, rules, x, positions,
+               lp):
+    block = functools.partial(_train_block, cfg, compute_dtype, rules)
     if not (cfg.remat and torch.is_grad_enabled()):
         return block(x, positions, lp)
     kw = {}
@@ -228,7 +270,7 @@ def _run_block(cfg: TransformerConfig, compute_dtype, x, positions, lp):
 
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig,
-                   compute_dtype=None):
+                   compute_dtype=None, rules=None):
     """tokens [B,S] -> (final-norm hidden states [B,S,Dm], the MoE aux loss
     summed over layers, an f32 scalar).  The MoE layers dispatch in
     ``cfg.moe_dp_groups`` groups.
@@ -239,50 +281,63 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig,
     block, which ``cfg.remat`` recomputes in the backward); the rows are
     gathered before the cast, so the embedding's gradient adds in the
     masters' dtype."""
-    b, s = tokens.shape
-    x = params["embed"][tokens.long()]
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["layers"]:
-        if compute_dtype is None:
-            x, _, a = _layer_fn(cfg, x, positions, lp,
-                                dp_groups=cfg.moe_dp_groups)
-        else:
-            x, a = _run_block(cfg, compute_dtype, x, positions, lp)
-        aux = aux + a
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    with mesh_scope(params):
+        b, s = tokens.shape
+        x = _embed(params["embed"], tokens)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        x = constrain(x, ("batch", "seq", "d_model"), rules)
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in params["layers"]:
+            if compute_dtype is None:
+                x, _, a = _layer_fn(cfg, x, positions, lp,
+                                    dp_groups=cfg.moe_dp_groups, rules=rules)
+            else:
+                x, a = _run_block(cfg, compute_dtype, rules, x, positions,
+                                  lp)
+            aux = aux + a
+        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
-            compute_dtype=None):
+            compute_dtype=None, rules=None):
     """tokens [B,S] -> (logits [B,S,V], aux); ``compute_dtype`` as in
     :func:`forward_hidden` (it casts ``unembed`` too)."""
-    x, aux = forward_hidden(params, tokens, cfg, compute_dtype)
-    w = params["unembed"]
-    return x @ (w if compute_dtype is None else w.to(compute_dtype)), aux
+    with mesh_scope(params):
+        x, aux = forward_hidden(params, tokens, cfg, compute_dtype, rules)
+        x = constrain(x, ("batch", None, "d_model"), rules)
+        w = params["unembed"]
+        logits = x @ (w if compute_dtype is None else w.to(compute_dtype))
+        return constrain(logits, ("batch", None, "vocab"), rules), aux
 
 
 def loss_fn(params, batch, cfg: TransformerConfig,
-            compute_dtype=torch.bfloat16, aux_weight: float = 0.01):
+            compute_dtype=torch.bfloat16, aux_weight: float = 0.01,
+            rules=None):
     """Next-token cross-entropy of ``batch = {tokens [B,S], labels [B,S]}``
     (int ids) on master weights: f32 logits, ``logsumexp`` minus the gold
     logit, the mean, plus ``aux_weight`` times the MoE aux loss ->
     ``(loss, {"ce", "aux"})``."""
-    logits, aux = forward(params, batch["tokens"], cfg, compute_dtype)
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    ce = (logz - gold).mean()
-    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+    with mesh_scope(params):
+        logits, aux = forward(params, batch["tokens"], cfg, compute_dtype,
+                              rules)
+        logits = logits.float()
+        logz = logsumexp_last(logits)
+        gold = take_last(logits, batch["labels"])
+        ce = (logz - gold).mean()
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            rules=None) -> torch.Tensor:
     """Last-position logits [B,V] (the TTFT path); the unembed runs on the
     last position only."""
-    return forward_hidden(params, tokens, cfg)[0][:, -1] @ params["unembed"]
+    with mesh_scope(params):
+        x = forward_hidden(params, tokens, cfg, rules=rules)[0]
+        x = constrain(x, ("batch", None, "d_model"), rules)
+        return constrain(x[:, -1] @ params["unembed"], ("batch", "vocab"),
+                         rules)
 
 
 # ---------------------------------------------------------------------------
@@ -297,21 +352,32 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def kv_cache_logical(max_seq: int) -> dict:
+    kv_ax = L.kv_seq_axis(max_seq)
+    return {"k": (None, "batch", kv_ax, "kv_heads", None),
+            "v": (None, "batch", kv_ax, "kv_heads", None)}
+
+
 def decode_step(params, cache: dict, tokens: torch.Tensor, cache_index: int,
-                cfg: TransformerConfig, backend: str | None = None):
+                cfg: TransformerConfig, backend: str | None = None,
+                rules=None):
     """One serving step: tokens [B], cache_index an int.  Writes each
     layer's K/V at ``cache_index`` into ``cache`` in place and returns
     ``(logits [B,V], cache)``.  ``backend`` switches ``decode_attention``
     (None: the kernel on CUDA, the plain version on the CPU).  The MoE
     layers dispatch the B tokens flat, whatever ``cfg.moe_dp_groups``, as
     the reference's decode does."""
-    b = tokens.shape[0]
-    x = params["embed"][tokens.long()][:, None, :]               # [B,1,Dm]
-    positions = torch.full((b, 1), int(cache_index), dtype=torch.int32,
-                           device=x.device)
-    for i, lp in enumerate(params["layers"]):
-        x, _, _ = _layer_fn(cfg, x, positions, lp,
-                            kv_cache=(cache["k"][i], cache["v"][i]),
-                            cache_index=cache_index, backend=backend)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return (x @ params["unembed"])[:, 0], cache
+    with mesh_scope(params):
+        b = tokens.shape[0]
+        x = _embed(params["embed"], tokens)[:, None, :]          # [B,1,Dm]
+        x = constrain(x, ("batch", None, "d_model"), rules)
+        positions = torch.full((b, 1), int(cache_index), dtype=torch.int32,
+                               device=x.device)
+        for i, lp in enumerate(params["layers"]):
+            x, _, _ = _layer_fn(cfg, x, positions, lp,
+                                kv_cache=(cache["k"][i], cache["v"][i]),
+                                cache_index=cache_index, backend=backend,
+                                rules=rules)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = (x @ params["unembed"])[:, 0]
+        return constrain(logits, ("batch", "vocab"), rules), cache

@@ -23,9 +23,16 @@ The updates write parameters and state in place under ``torch.no_grad()``
 (the twin of the reference's donated buffers): one set of weights and
 moments is held, and the f32 temporaries are bounded by working through
 slices of at most ``CHUNK`` elements.  ``clip_by_global_norm`` scales the
-gradients in place.  ``opt_state_logical`` is sharding only and has no
-twin, and ``OptConfig`` has no ``min_dim_factored``, which the reference
-never reads.
+gradients in place.  ``OptConfig`` has no ``min_dim_factored``, which the
+reference never reads.
+
+On a mesh (``DTensor`` parameters) :func:`opt_state_logical` places the
+state as the reference does: AdamW's moments follow the parameters,
+Adafactor's ``vr`` drops the last axis and ``vc`` the second to last.  A
+gradient is first laid out as its parameter (the data-parallel reduction),
+AdamW then runs the same arithmetic on each rank's local shards, and
+Adafactor runs on the ``DTensor`` leaves whole, its factored means over a
+sharded dim being partial reductions that ``DTensor`` completes.
 """
 from __future__ import annotations
 
@@ -34,6 +41,9 @@ import math
 from collections.abc import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.utils import is_logical
 
 # elements of the largest slice an update works on at once (256 MB in f32)
 CHUNK = 1 << 26
@@ -107,14 +117,25 @@ def _slices(t: torch.Tensor):
 # Global norm and clipping
 # ---------------------------------------------------------------------------
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (writes reach the ``DTensor``), or
+    ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor)."""
+    """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor; a
+    plain one also for ``DTensor`` leaves, each leaf's sum being completed
+    across the mesh)."""
     total = None
     for _, parts in leaves(tree):
         for t in parts:
-            for c in _slices(t):
-                sq = c.float().square().sum()
+            if isinstance(t, DTensor):
+                sqs = [t.float().square().sum().full_tensor()]
+            else:
+                sqs = [c.float().square().sum() for c in _slices(t)]
+            for sq in sqs:
                 total = sq if total is None else total + sq
     return total.sqrt()
 
@@ -125,10 +146,11 @@ def clip_by_global_norm(grads, max_norm: float, norm=None):
     (the factor cast to each leaf's dtype) -> ``(grads, norm)``, ``norm``
     the global norm before the clip (computed unless given)."""
     norm = global_norm(grads) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = torch.clamp(max_norm / torch.clamp(_local(norm), min=1e-9),
+                        max=1.0)
     for _, parts in leaves(grads):
         for g in parts:
-            g.mul_(scale.to(g.dtype))
+            _local(g).mul_(scale.to(g.dtype))
     return grads, norm
 
 
@@ -159,18 +181,28 @@ def _views(state_leaf: torch.Tensor, stacked: bool) -> list:
     return list(state_leaf) if stacked else [state_leaf]
 
 
+def like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient laid out as its ``DTensor`` parameter (a partial sum is
+    reduced, a replicated one sliced), or ``g``."""
+    if isinstance(p, DTensor) and isinstance(g, DTensor) \
+            and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads, state, params):
     """One AdamW step, in place -> ``(params, state)``."""
     step = state["step"].add_(1)
-    t = step.float()
+    t = _local(step).float()
     bc1 = 1 - torch.pow(cfg.b1, t)
     bc2 = 1 - torch.pow(cfg.b2, t)
     for (path, ps), (_, gs) in zip(leaves(params), leaves(grads)):
         stacked = _stacked(params, path)
-        ms = _views(_get(state["m"], path), stacked)
-        vs = _views(_get(state["v"], path), stacked)
-        for p, g, m, v in zip(ps, gs, ms, vs):
+        ms = _views(_local(_get(state["m"], path)), stacked)
+        vs = _views(_local(_get(state["v"], path)), stacked)
+        gs = [_local(like_param(g, p)).contiguous() for g, p in zip(gs, ps)]
+        for p, g, m, v in zip(map(_local, ps), gs, ms, vs):
             for pc, gc, mc, vc in zip(_slices(p), _slices(g), _slices(m),
                                       _slices(v)):
                 g32 = gc.float()
@@ -208,6 +240,8 @@ def _factored_u(g: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
     denom = vr[..., None] * vc[..., None, :]
     denom.div_(torch.clamp(vr.mean(-1, keepdim=True)[..., None], min=1e-30))
     denom.sqrt_().add_(eps)
+    if isinstance(denom, DTensor):
+        return g / denom
     return torch.div(g, denom, out=denom)
 
 
@@ -280,11 +314,14 @@ def _adafactor_whole(cfg, ps, gs, v, beta, stacked) -> None:
 def adafactor_update(cfg: OptConfig, grads, state, params):
     """One Adafactor step, in place -> ``(params, state)``."""
     step = state["step"].add_(1)
-    beta = 1.0 - torch.pow(step.float(), -cfg.decay)
+    beta = 1.0 - torch.pow(_local(step).float(), -cfg.decay)
     for (path, ps), (_, gs) in zip(leaves(params), leaves(grads)):
         stacked = _stacked(params, path)
         v = _get(state["v"], path)
-        if "vr" in v and ps[0].dim() >= 2:
+        if isinstance(ps[0], DTensor):
+            gs = [like_param(g, p) for g, p in zip(gs, ps)]
+            _adafactor_whole(cfg, ps, gs, v, beta, stacked)
+        elif "vr" in v and ps[0].dim() >= 2:
             _adafactor_matrices(cfg, ps, gs, _views(v["vr"], stacked),
                                 _views(v["vc"], stacked), beta,
                                 len(ps) * math.prod(ps[0].shape))
@@ -312,3 +349,34 @@ def opt_update(cfg: OptConfig, grads, state, params, grad_norm=None):
     if cfg.name == "adamw":
         return adamw_update(cfg, grads, state, params)
     return adafactor_update(cfg, grads, state, params)
+
+
+def _stacked_logical(tree):
+    """A parameters' logical tree with each list (one entry a layer) as
+    the reference's stacked leaves: its first entry, each leaf led by an
+    unsharded layer axis."""
+    if is_logical(tree):
+        return tree
+    if isinstance(tree, Mapping):
+        return {k: _stacked_logical(v) for k, v in tree.items()}
+    return _map_leaves(lambda lg: (None,) + lg, _stacked_logical(tree[0]))
+
+
+def _map_leaves(fn, tree):
+    if is_logical(tree):
+        return fn(tree)
+    return {k: _map_leaves(fn, v) for k, v in tree.items()}
+
+
+def opt_state_logical(cfg: OptConfig, params_logical) -> dict:
+    """Logical axes of :func:`opt_init`'s state, from the parameters'
+    (``src/repro/training/optimizer.py:143-155``)."""
+    plog = _stacked_logical(params_logical)
+    if cfg.name == "adamw":
+        return {"m": plog, "v": plog, "step": ()}
+
+    def v_logical(lg):
+        # vr drops the last dim's axis, vc drops the second-to-last's
+        return ({"vr": lg[:-1], "vc": lg[:-2] + lg[-1:]} if len(lg) >= 2
+                else {"v": lg})
+    return {"v": _map_leaves(v_logical, plog), "step": ()}

@@ -16,7 +16,8 @@ from typing import Callable
 import torch
 
 from repro_torch.training.optimizer import (OptConfig, global_norm, leaves,
-                                            opt_update)
+                                            like_param, opt_update)
+from repro_torch.utils import mesh_scope
 
 
 def _params(params) -> list[torch.Tensor]:
@@ -44,7 +45,8 @@ def _grads(tree, sums=None):
         return [_grads(t, sums) for t in tree]
     if sums and id(tree) in sums:
         return sums[id(tree)]
-    return tree.grad if tree.grad is not None else torch.zeros_like(tree)
+    return (like_param(tree.grad, tree) if tree.grad is not None
+            else torch.zeros_like(tree))
 
 
 def _update(opt_cfg, params, opt_state, grads) -> torch.Tensor:
@@ -61,8 +63,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig):
 
     def train_step(params, opt_state, batch):
         ps = _params(params)
-        loss, metrics = loss_fn(params, batch)
-        loss.backward()
+        with mesh_scope(params):
+            loss, metrics = loss_fn(params, batch)
+            loss.backward()
         norm = _update(opt_cfg, params, opt_state, _grads(params))
         _release(ps)
         out = {k: v.detach() for k, v in metrics.items()}
@@ -89,26 +92,27 @@ def make_train_step_accum(loss_fn: Callable, opt_cfg: OptConfig,
             raise ValueError(f"a batch of {n} over {n_micro} micro-batches")
         sums = {}                  # id of a non-f32 parameter -> f32 sum
         total = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-        for i in range(n_micro):
-            mb = {k: v.reshape(n_micro, n // n_micro, *v.shape[1:])[i]
-                  for k, v in batch.items()}
-            loss, _ = loss_fn(params, mb)
-            loss.backward()
-            total = total + loss.detach()
-            for p in ps:
-                if p.dtype != torch.float32 and p.grad is not None:
-                    if id(p) in sums:
-                        sums[id(p)].add_(p.grad.float())
-                    else:
-                        sums[id(p)] = p.grad.float()
-                    p.grad = None
+        with mesh_scope(params):
+            for i in range(n_micro):
+                mb = {k: v.reshape(n_micro, n // n_micro, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss, _ = loss_fn(params, mb)
+                loss.backward()
+                total = total + loss.detach()
+                for p in ps:
+                    if p.dtype != torch.float32 and p.grad is not None:
+                        if id(p) in sums:
+                            sums[id(p)].add_(p.grad.float())
+                        else:
+                            sums[id(p)] = p.grad.float()
+                        p.grad = None
+            total = total / n_micro
         grads = _grads(params, sums)
         for _, parts in leaves(grads):
             for g in parts:
                 g.div_(n_micro)
         norm = _update(opt_cfg, params, opt_state, grads)
         _release(ps)
-        return params, opt_state, {"loss": total / n_micro,
-                                   "grad_norm": norm}
+        return params, opt_state, {"loss": total, "grad_norm": norm}
 
     return train_step

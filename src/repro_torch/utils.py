@@ -1,14 +1,29 @@
-"""Device resolution, dtype casts and the tie rule shared by the port.
+"""Device resolution, dtype casts, the tie rule and the logical-axis
+sharding rules shared by the port.
 
 Tie rule: wherever the reference uses ``lax.top_k`` or ``argmax``, ties go
 to the lowest index.  ``torch.topk`` promises no order among equal values
 on CUDA, so every selection in the port goes through :func:`stable_topk`
 (a stable descending sort) or :func:`first_argmax` (an explicit minimum
 over the tied positions).
+
+Sharding (twin of ``src/repro/utils.py:49-109``): every parameter and
+activation dim has a *logical* name; a rules table maps each name to mesh
+axes, and :func:`logical_to_placements` resolves a tuple of names into
+``torch.distributed.tensor`` placements on a named ``DeviceMesh``.
+:func:`tree_distribute` places a tree of tensors as ``DTensor`` leaves and
+:func:`constrain` redistributes an activation at the points the reference
+constrains it.  With ``rules=None`` (the default everywhere) nothing is
+placed and every function runs on plain tensors as before.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+from collections.abc import Mapping, Sequence
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,8 +69,11 @@ def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties to the lower index.
 
     ``x [..., N]`` -> (vals [..., k] descending, pos [..., k] int64).  When
-    ``N < k`` the tail is padded with ``-inf`` at position ``-1``.
+    ``N < k`` the tail is padded with ``-inf`` at position ``-1``.  A
+    ``DTensor`` is sorted whole on every rank (:func:`run_replicated`).
     """
+    if isinstance(x, DTensor):
+        return run_replicated(lambda t: stable_topk(t, k), x)
     n = x.shape[-1]
     if n < k:
         x = torch.cat([x, x.new_full((*x.shape[:-1], k - n), -torch.inf)],
@@ -68,8 +86,349 @@ def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def first_argmax(x: torch.Tensor) -> torch.Tensor:
-    """Index of the first maximum along the last axis (``jnp.argmax``)."""
+    """Index of the first maximum along the last axis (``jnp.argmax``);
+    a ``DTensor`` is searched whole on every rank."""
+    if isinstance(x, DTensor):
+        return run_replicated(first_argmax, x)
     n = x.shape[-1]
     best = x.max(dim=-1, keepdim=True).values
     pos = torch.arange(n, device=x.device).expand_as(x)
     return torch.where(x == best, pos, n).min(dim=-1).values
+
+
+# ---------------------------------------------------------------------------
+# Logical axis rules (the reference's tables, copied)
+# ---------------------------------------------------------------------------
+
+# Production rules for the (pod, data, model) mesh.  ``fsdp`` is the
+# weight-sharding axis (ZeRO-3 style); ``tensor`` the tensor-parallel one.
+PRODUCTION_RULES: dict[str, tuple[str, ...] | str | None] = {
+    "batch": ("pod", "data"),          # data-parallel batch
+    "seq": "model",                    # residual-stream sequence parallelism
+    "kv_seq": "model",                 # decode-time KV cache sharding
+    "kv_seq_long": ("data", "model"),  # 500k-context decode KV sharding
+    "d_model": None,                   # activations stay replicated on d_model
+    "heads": "model",                  # attention-head tensor parallel
+    "kv_heads": None,                  # GQA KV heads are few -> replicate
+    "d_ff": "model",                   # FFN tensor parallel
+    "vocab": "model",                  # vocab-parallel embedding / logits
+    "experts": "model",                # MoE expert parallel
+    "fsdp": "data",                    # ZeRO-3 weight shard axis
+    "corpus": ("data", "model"),       # retrieval corpus shards
+    "emb_vocab": "model",              # recsys embedding-table vocab shards
+    "nodes": ("data", "model"),        # GNN node partition
+    "edges": ("data", "model"),        # GNN edge partition
+}
+
+# Single-device rules (tests / smoke): everything replicated.
+LOCAL_RULES: dict[str, tuple[str, ...] | str | None] = {
+    k: None for k in PRODUCTION_RULES}
+
+
+def _axes(value) -> tuple[str, ...]:
+    if value is None:
+        return ()
+    return (value,) if isinstance(value, str) else tuple(value)
+
+
+def logical_to_placements(logical: Sequence[str | None],
+                          rules: Mapping, mesh) -> tuple:
+    """Placements on ``mesh`` of a tensor whose dims carry the logical
+    names ``logical``: a dim whose name maps to mesh axes is
+    ``Shard(dim)`` on each of them, every other mesh dim ``Replicate()``.
+    Axes the mesh lacks are dropped, and an axis of size 1 shards nothing
+    (``Replicate``: one shard is the whole).  A tuple of axes shards major
+    to minor in its order (the reference's ``PartitionSpec``); ``DTensor``
+    shards in mesh-dim order, so the two must agree, and an axis taken by
+    two dims raises, as the reference's spec would."""
+    names = tuple(mesh.mesh_dim_names or ())
+    out: list = [Replicate()] * mesh.ndim
+    taken: set = set()
+    for dim, name in enumerate(logical):
+        if name is None:
+            continue
+        idx = [names.index(a) for a in _axes(rules.get(name)) if a in names]
+        if idx != sorted(idx):
+            raise ValueError(f"logical axis {name!r}: mesh axes "
+                             f"{rules.get(name)} out of the mesh's order "
+                             f"{names}")
+        for i in idx:
+            if i in taken:
+                raise ValueError(f"mesh axis {names[i]!r} maps two dims of "
+                                 f"{tuple(logical)}")
+            taken.add(i)
+            if mesh.size(i) > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def is_logical(x) -> bool:
+    """A leaf of a logical tree: a tuple of axis names (or None)."""
+    return isinstance(x, tuple) and all(
+        isinstance(e, str) or e is None for e in x)
+
+
+def _map_logical(fn, tree, logical):
+    """``fn(leaf, logical_leaf)`` over a tree and its logical twin (dicts,
+    lists and tuples of leaves; logical leaves are tuples of names)."""
+    if is_logical(logical):
+        return fn(tree, logical)
+    if isinstance(logical, Mapping):
+        return {k: _map_logical(fn, tree[k], logical[k]) for k in tree}
+    out = [_map_logical(fn, t, lg) for t, lg in zip(tree, logical)]
+    return type(tree)(out) if isinstance(tree, tuple) else out
+
+
+def tree_placements(logical_tree, rules: Mapping, mesh):
+    """A logical tree's placements, leaf by leaf (the reference's
+    ``tree_specs``)."""
+    return _map_logical(lambda lg, _: logical_to_placements(lg, rules, mesh),
+                        logical_tree, logical_tree)
+
+
+def tree_distribute(tree, logical_tree, rules: Mapping, mesh):
+    """``tree`` with every tensor leaf a ``DTensor`` on ``mesh``, placed by
+    its logical leaf (the reference's ``tree_shardings`` + ``device_put``).
+    Each rank passes the same full tensors; a leaf that is no tensor (a
+    host int) passes through."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(t, lg):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return distribute_tensor(t, mesh,
+                                 logical_to_placements(lg, rules, mesh))
+    return _map_logical(place, tree, logical_tree)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def constrain(x, logical: Sequence[str | None], rules: Mapping | None):
+    """Redistribute ``x`` to the placements of ``logical`` (the
+    reference's ``with_sharding_constraint``).  Nothing happens when
+    ``rules`` is None or ``x`` is a plain tensor.  A dim that its mesh
+    axes do not divide is left whole: the reference's compiler pads it,
+    and ``DTensor`` cannot view an uneven shard."""
+    if rules is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    placements = list(logical_to_placements(logical, rules, mesh))
+    for d in range(x.ndim):
+        if x.shape[d] % math.prod(mesh.size(i) for i, p in
+                                  enumerate(placements) if p == Shard(d)):
+            placements = [Replicate() if p == Shard(d) else p
+                          for p in placements]
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def settled(x):
+    """A ``DTensor`` with its partial placements reduced (replicated); a
+    plain tensor as it is.  A row-sharded lookup or a gather along a
+    sharded dim leaves a masked partial result, which ``DTensor`` cannot
+    reduce once a later reduction has changed its shape."""
+    if not isinstance(x, DTensor) or not any(
+            p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p.is_partial() else p
+                           for p in x.placements])
+
+
+def _gathered(x: DTensor, dim: int, n: int | None = None) -> DTensor:
+    """``x`` with ``dim`` gathered over each mesh dim that shards it and
+    whose size does not divide ``n`` (every such mesh dim when ``n`` is
+    None)."""
+    mesh = x.device_mesh
+    pl = [Replicate() if p == Shard(dim) and (n is None or n % mesh.size(i))
+          else p for i, p in enumerate(x.placements)]
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
+
+
+def _merge(x: DTensor, dim: int) -> DTensor:
+    x = _gathered(_gathered(x, dim + 1), dim, x.shape[dim])
+    return x.flatten(dim, dim + 1)
+
+
+def _split(x: DTensor, dim: int, a: int) -> DTensor:
+    return _gathered(x, dim, a).unflatten(dim, (a, x.shape[dim] // a))
+
+
+class _Merge(torch.autograd.Function):
+    """Dims ``dim, dim+1`` of a ``DTensor`` merged into one, each way first
+    laid out so that ``DTensor`` can view it (a merged dim is sharded only
+    on its leading dim, by mesh sizes that divide it): a view of a sharded
+    inner dim is refused, as it would need a redistribution."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.a = dim, x.shape[dim]
+        return _merge(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(g, ctx.dim, ctx.a), None
+
+
+class _Split(torch.autograd.Function):
+    """The inverse of :class:`_Merge`: ``dim`` split into ``(a, -1)``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, a):
+        ctx.dim = dim
+        return _split(x, dim, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _merge(g, ctx.dim), None, None
+
+
+def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.flatten(dim, dim + 1)``; on a ``DTensor`` through :class:`_Merge`
+    (differentiable both ways)."""
+    if isinstance(x, DTensor):
+        return _Merge.apply(x, dim)
+    return x.flatten(dim, dim + 1)
+
+
+def split_dim(x: torch.Tensor, dim: int, a: int) -> torch.Tensor:
+    """``x.unflatten(dim, (a, -1))``; on a ``DTensor`` through
+    :class:`_Split`."""
+    if isinstance(x, DTensor):
+        return _Split.apply(x, dim, a)
+    return x.unflatten(dim, (a, x.shape[dim] // a))
+
+
+def replicated(x):
+    """A ``DTensor`` redistributed to be whole on every rank; a plain
+    tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def run_replicated(fn, *args):
+    """``fn`` over whole tensors: ``DTensor`` arguments are gathered whole
+    (``full_tensor``, differentiable) and ``fn`` runs on every rank on
+    plain tensors; if any argument was a ``DTensor``, each tensor ``fn``
+    returns comes back replicated on that mesh.  For the steps that
+    ``DTensor`` has no rule for (sorts with ties kept, scatters by
+    routing): they run whole, as the reference's compiler falls back to a
+    replicated operand."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    out = fn(*[a.full_tensor() if isinstance(a, DTensor) else a
+               for a in args])
+    rep = [Replicate()] * mesh.ndim
+
+    def wrap(t):
+        if isinstance(t, torch.Tensor):
+            return DTensor.from_local(t, mesh, rep, run_check=False)
+        if isinstance(t, (tuple, list)):
+            return type(t)(wrap(v) for v in t)
+        return t
+    return wrap(out)
+
+
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, DTensor):
+        return True
+    if isinstance(tree, Mapping):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return False
+
+
+@contextlib.contextmanager
+def mesh_scope(*trees):
+    """While open, when any leaf of ``trees`` is a ``DTensor``: plain
+    tensors meeting a ``DTensor`` in an operation (positions, masks,
+    ``arange``) count as replicated, as constants do in the reference's
+    SPMD program.  Nests (``implicit_replication`` does not), and does
+    nothing on plain trees."""
+    if not _has_dtensor(trees):
+        yield
+        return
+    d = DTensor._op_dispatcher
+    prev = d._allow_implicit_replication
+    d._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        d._allow_implicit_replication = prev
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy pieces over a last dim that may be sharded (the vocab)
+# ---------------------------------------------------------------------------
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim.  On a ``DTensor`` sharded there it
+    is the max (held fixed), the sum of exponentials and the log, each a
+    reduction that ``DTensor`` completes with a small all-reduce; the
+    plain form is ``torch.logsumexp``."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=-1)
+    m = settled(x.detach().amax(dim=-1, keepdim=True))
+    total = settled((x - m).exp().sum(dim=-1))
+    return m[..., 0] + total.log()
+
+
+class _TakeLast(torch.autograd.Function):
+    """``x[..., idx]`` along a ``DTensor``'s last dim, sharded or not:
+    each rank takes the entries its shard holds (zero elsewhere) and the
+    shards' results add up; the backward scatters into the local shard
+    only, so no rank holds the whole of ``x`` or its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        mesh, last = x.device_mesh, x.ndim - 1
+        rest = [Replicate() if p == Shard(last) else p
+                for p in x.placements]
+        if not isinstance(idx, DTensor):
+            idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        idx = idx.redistribute(mesh, rest).to_local().long()
+        local = x.to_local()
+        shape, offset = compute_local_shape_and_global_offset(
+            x.shape, mesh, x.placements)
+        pos = idx - offset[last]
+        valid = (pos >= 0) & (pos < shape[last])
+        pos = pos.clamp(0, max(shape[last] - 1, 0))
+        out = local.gather(-1, pos[..., None])[..., 0] * valid
+        ctx.save_for_backward(pos, valid)
+        ctx.meta = (mesh, tuple(x.placements), local.shape, local.dtype)
+        part = [Partial() if p == Shard(last) else p for p in x.placements]
+        return DTensor.from_local(out, mesh, part,
+                                  run_check=False).redistribute(mesh, rest)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, valid = ctx.saved_tensors
+        mesh, placements, shape, dtype = ctx.meta
+        rest = [Replicate() if isinstance(p, Shard) and p.dim == len(shape)
+                - 1 else p for p in placements]
+        g = g.redistribute(mesh, rest).to_local()
+        grad = torch.zeros(shape, dtype=dtype, device=g.device)
+        grad.scatter_(-1, pos[..., None], (g * valid).to(dtype)[..., None])
+        return DTensor.from_local(grad, mesh, placements,
+                                  run_check=False), None
+
+
+def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]``, one entry of the last dim per position (``idx``
+    shaped as ``x`` without its last dim): ``gather`` on plain tensors,
+    :class:`_TakeLast` on a ``DTensor``."""
+    if not isinstance(x, DTensor):
+        return x.gather(-1, idx.long()[..., None])[..., 0]
+    return _TakeLast.apply(x, idx)

@@ -5,6 +5,8 @@
 * Without a card, entry points called without ``device=`` raise instead of
   running on the CPU, and a missing ``nvcc`` makes the kernel build raise.
 * ``chip_smoke.py`` fails, and prints no result, where CUDA is missing.
+* The meshes go on the card unless asked for the CPU: without a card
+  ``make_local_mesh()`` raises, and a production mesh needs its world.
 """
 import ast
 import os
@@ -278,3 +280,12 @@ def test_chip_smoke_fails_without_cuda():
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "CUDA" in proc.stderr
+
+
+def test_meshes_refuse_cpu_fallback(monkeypatch):
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.make_local_mesh()
+    with pytest.raises(ValueError, match="needs a world of 256"):
+        M.make_production_mesh(device_type="cpu")
