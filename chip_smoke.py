@@ -200,7 +200,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    (one card: NCCL takes one rank a card), ids against
    ``chunked_flat_search`` on the card up to proven near-ties; (c) the
    ``--all`` sweep in ``SWEEP_JOBS`` processes, started after (b) so that
-   it runs beside (a) and no timed phase: all 41 cells OK with every key,
+   it runs beside (a) and no timed phase (but its longest cell,
+   ``SWEEP_EARLY``, which runs from phase 10 on in one process at the
+   lowest CPU priority): all 41 cells OK with every key,
    each cell's bound at most the dry run's prediction for the port (the
    larger of its compute and traffic terms), their roofline written to
    ``chiprun_out/roofline.md`` beside ``dryrun.json``, and one decode
@@ -220,12 +222,18 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    dequant``, exactly; bytes an element on the wire; time), then at gloo
    world 4 on the host (each rank's sum is the rank-order sum of the
    dequantized gradients); (d) ``reshard_tree`` of 10a's lm100m
-   checkpoint onto the mesh, every leaf bit-equal; (e) the 16x16 dry run
-   (a ``fake`` world of 256 ranks in a CPU subprocess with its own time
-   cap, beside 12c's sweep) of 12a's four cells and the three full-depth
-   LM trainings one card cannot hold: per rank its arguments plus temp
-   against 80 GB, collective bytes by kind and the roofline's three
-   terms;
+   checkpoint onto the mesh, every leaf bit-equal; (f) phase 11's
+   dlrm-rm2 train_batch and DimeNet minibatch_lg steps and one
+   256-sequence bert4rec step with parameters, AdamW state and batch on
+   the mesh, through the shard-local lookups, per-row steps, gathers and
+   segment sums: each first loss within MESH_MODEL_TOL of phase 11's
+   plain step's, the step time beside phase 11's, the wall against the
+   device's busy time, none of the eight kernels launched; (e) the 16x16
+   dry run (a ``fake`` world of 256 ranks in a CPU subprocess with its own
+   time cap, beside 12c's sweep) of 12a's four cells, deepfm's and
+   bert4rec's train_batch and the three full-depth LM trainings one card
+   cannot hold: per rank its arguments plus temp against 80 GB,
+   collective bytes by kind and the roofline's three terms;
 14. the ``kernels`` JSON line (launches on phase 9's paths; the RAG and
    recsys kernels' on their own: ``decode_attention`` phases 6 and 6b;
    13a reports its own), then the result line
@@ -418,14 +426,22 @@ DIST_WORLD = 4                 # gloo ranks on the card's host
 DIST_DEADLINE_S = 120
 SWEEP_CELLS = 41               # the registry's (arch x shape) cells
 SWEEP_JOBS = 6                 # the sweep's processes on the card's host
+# the sweep's longest cell (Adafactor's per-expert slices counted on meta,
+# ~3-4 min alone): it runs from phase 10 on, in one process at the lowest
+# CPU priority, so that 12c waits for the other cells only
+SWEEP_EARLY = ("arctic-480b", "train_4k")
 # phase 13: the sharding layer on the card's 1x1 mesh
 MESH_STEPS = 16                # 13a's decode steps on the mesh
 MESH_LOSS_TOL = 1e-4           # 13b's first loss against 10b's, relative
 COMPRESS_WORLD = 4             # 13c's gloo ranks on the card's host
 COMPRESS_ELEMENTS = 1 << 22    # 13c's gradient a gloo rank
+MESH_MODEL_TOL = 1e-5          # 13f's first losses against phase 11's, relative
+MESH_MODEL_STEPS = 3           # 13f's timed steps a model (the first one warm-up)
 MESH_DRYRUN_JOBS = 3           # 13e's processes (beside 12c's sweep)
 MESH_DRYRUN_CAP_S = 420        # 13e's time cap
-# 13e's cells on 16x16: 12a's, and the LM trainings one card cannot hold
+# 13e's cells on 16x16: 12a's, the recsys trainings whose tables are
+# row-sharded (deepfm and bert4rec besides 12a's dlrm-rm2), and the LM
+# trainings one card cannot hold
 MESH_CELLS = {
     "12a chatglm3-6b": ("chatglm3-6b", "train_4k",
                         P12_CELLS["chatglm3-6b"][1]),
@@ -433,11 +449,17 @@ MESH_CELLS = {
     "12a dimenet": ("dimenet", "minibatch_lg", {}),
     "12a has-rag": ("has-rag", "retrieve_batch",
                     P12_CELLS["has-rag"][1]),
+    "deepfm": ("deepfm", "train_batch", {}),
+    "bert4rec": ("bert4rec", "train_batch", {}),
     "chatglm3-6b": ("chatglm3-6b", "train_4k", {}),
     "dbrx-132b": ("dbrx-132b", "train_4k", {}),
     "arctic-480b": ("arctic-480b", "train_4k", {}),
 }
 SWEEP_WAIT_S = 420             # 12c's longest wait for the sweep to end
+# 13f: steps phase 11 measured, through the shard-local path on the card's
+# mesh; phase 11 keeps their batches here, on the host
+MESH_MODELS = ("dlrm-rm2", "minibatch_lg", "bert4rec")
+MESH_INPUTS: dict = {}
 
 
 def log(*a):
@@ -4816,6 +4838,8 @@ def ctr_arch(dev, timer, name: str, data: dict) -> dict:
     state = opt_init(opt_cfg, params)
     b = shapes["train_batch"].dims["batch"]
     train_b = batch_rows(bulk, b)
+    if name in MESH_MODELS:
+        MESH_INPUTS[name] = {k: v.cpu() for k, v in train_b.items()}
     info["train_batch"] = train_record(
         step, params, state, train_b, opt_cfg,
         recsys_forward_work(cfg, b)[1], cfg.param_count(),
@@ -4913,6 +4937,11 @@ def bert4rec_path(dev, timer) -> dict:
     opt_cfg = OptConfig(name="adamw")
     state = opt_init(opt_cfg, params)
     lossf = functools.partial(rs.loss_fn, cfg=cfg)
+    # the first micro-batch's loss on the fresh weights, for 13f
+    micro = batch_rows(tb, BERT_MICRO)
+    with torch.no_grad():
+        info["micro_loss0"] = float(lossf(params, micro)[0])
+    MESH_INPUTS["bert4rec"] = {k: v.cpu() for k, v in micro.items()}
     # a short accumulation first (the kernels' first calls), then one
     # timed step of the whole batch
     make_train_step_accum(lossf, opt_cfg, 2)(params, state,
@@ -4995,6 +5024,8 @@ def gnn_path(dev, draws) -> dict:
             unmasked_loss = float(dn.loss_fn(params, batch, cfg)[0])
         loops = batch["edge_src"] == batch["edge_dst"]
         batch["edge_mask"] &= ~loops
+        if shape in MESH_MODELS:
+            MESH_INPUTS[shape] = {k: v.cpu() for k, v in batch.items()}
         opt_cfg, step = adamw_step(functools.partial(dn.loss_fn, cfg=cfg))
         state = opt_init(opt_cfg, params)
         torch.cuda.synchronize()
@@ -5208,24 +5239,49 @@ def stop_children() -> None:
             p.wait()
 
 
-def start_sweep() -> subprocess.Popen:
-    """12c's sweep, ``python -m repro_torch.launch.dryrun --all`` in
-    SWEEP_JOBS processes (``meta`` tensors only), started once the timed
-    phases are done: CPU work beside phase 11 slowed its host-bound
-    steps."""
+def _dryrun_proc(args: list, log_name: str, nice: int = 0):
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "dryrun.json").unlink(missing_ok=True)
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": str(ROOT / "src")}
-    with open(out_dir / "dryrun.log", "w") as f:
+    with open(out_dir / log_name, "w") as f:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--jobs", str(SWEEP_JOBS), "--out",
-             str(out_dir / "dryrun.json")],
-            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+            preexec_fn=(lambda: os.nice(nice)) if nice else None)
     _CHILDREN.append(proc)
     return proc
+
+
+def start_early_cell() -> subprocess.Popen:
+    """The sweep's SWEEP_EARLY cell, started with phase 10 in one process
+    at the lowest CPU priority (``meta`` tensors only): one core of the
+    host's eight, yielding to the timed phases."""
+    out = ROOT / "chiprun_out" / "dryrun_early.json"
+    out.unlink(missing_ok=True)
+    arch, shape = SWEEP_EARLY
+    return _dryrun_proc(["--arch", arch, "--shape", shape, "--out",
+                         str(out)], "dryrun_early.log", nice=19)
+
+
+def start_sweep(early: subprocess.Popen) -> subprocess.Popen:
+    """12c's sweep, ``python -m repro_torch.launch.dryrun --all`` in
+    SWEEP_JOBS processes (``meta`` tensors only), started once the timed
+    phases are done (CPU work beside phase 11 slowed its host-bound
+    steps), with the early cell's record taken as done."""
+    out_dir = ROOT / "chiprun_out"
+    try:
+        code = early.wait(timeout=SWEEP_WAIT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"12c: the {SWEEP_EARLY} cell did not end "
+                             f"within {SWEEP_WAIT_S} s") from None
+    if code != 0:
+        raise AssertionError(f"12c: the {SWEEP_EARLY} cell exited {code} "
+                             f"(dryrun_early.log)")
+    shutil.copy(out_dir / "dryrun_early.json", out_dir / "dryrun.json")
+    return _dryrun_proc(["--all", "--skip-done", "--jobs", str(SWEEP_JOBS),
+                         "--out", str(out_dir / "dryrun.json")],
+                        "dryrun.log")
 
 
 def measured_steps(tr: dict, p11: dict) -> dict:
@@ -5484,7 +5540,8 @@ def report_phase12(p: dict) -> None:
         f"{(big['argument_size_in_bytes'] + big['temp_size_in_bytes']) / 1e9:.1f}"
         f" GB; every bound at most the larger of the predicted compute and "
         f"traffic; the cells' counted calls took {c['sweep_s']:.1f} s in "
-        f"{SWEEP_JOBS} processes, {c['wall_s']:.1f} s from the sweep's start"
+        f"{SWEEP_JOBS} processes ({SWEEP_EARLY[0]} {SWEEP_EARLY[1]} from "
+        f"phase 10 in one more), {c['wall_s']:.1f} s from the sweep's start"
         f" to its end, {c['waited_s']:.1f} s waited after 12a; "
         f"chiprun_out/dryrun.json, roofline.md")
     log(f"[12c sweep] chatglm3-6b long_500k on meta in this process: "
@@ -5736,6 +5793,8 @@ def compress_gloo() -> dict:
             raise AssertionError(f"13c gloo: rank {r}'s sum is not the sum "
                                  f"of the dequantized gradients")
         ms.append(float(got["ms"]))
+    # the ranks' sums (16 MB each) are checked: chiprun_out keeps reports
+    shutil.rmtree(root, ignore_errors=True)
     return {"world": COMPRESS_WORLD, "elements": COMPRESS_ELEMENTS,
             "ms_per_rank": ms}
 
@@ -5781,6 +5840,83 @@ recs = list(D._records([(a, s, False, v) for a, s, v in cells],
                        int(sys.argv[3])))
 json.dump(recs, open(sys.argv[2], "w"), indent=1)
 """
+
+
+def mesh_models(dev, mesh, rules, p11: dict, counters) -> dict:
+    """13f: phase 11's dlrm-rm2 train_batch step, DimeNet minibatch_lg
+    step and one BERT_MICRO-sequence bert4rec step with every parameter,
+    the AdamW state (``opt_state_logical``) and the batch ``DTensor``
+    leaves on the card's mesh, so that they run the shard-local path
+    (``utils.vocab_lookup``, ``per_rows``, ``vocab_logits``,
+    ``gather_rows``, ``segment_sum``; on a 1x1 mesh every collective of it
+    is an identity): the first loss against phase 11's plain step on the
+    same weights (seed 0) and batch within MESH_MODEL_TOL, relative;
+    MESH_MODEL_STEPS timed steps beside phase 11's step, one profiled
+    (device busy against the wall).  None of the eight kernels runs."""
+    import functools
+
+    from repro_torch.configs.dimenet import GNN_SHAPES, _cfg_for
+    from repro_torch.configs.families import (adamw_step, gnn_abstract_batch,
+                                              recsys_abstract_batch)
+    from repro_torch.configs.recsys_archs import RECSYS_CONFIGS
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import recsys as rs
+    from repro_torch.training.optimizer import opt_init, opt_state_logical
+    from repro_torch.utils import tree_distribute
+
+    b11, c11 = p11["11b"], p11["11c"]
+    gnn = _cfg_for("minibatch_lg")
+    d = GNN_SHAPES["minibatch_lg"].dims
+    cases = {
+        "dlrm-rm2": (rs, RECSYS_CONFIGS["dlrm-rm2"],
+                     b11["dlrm-rm2"]["train_batch"]["metrics"][0]["loss"],
+                     b11["dlrm-rm2"]["train_batch"]["step_ms"]),
+        "minibatch_lg": (dn, gnn, c11["minibatch_lg"]["metrics"][0]["loss"],
+                         c11["minibatch_lg"]["step_ms"]),
+        "bert4rec": (rs, RECSYS_CONFIGS["bert4rec"],
+                     b11["bert4rec"]["micro_loss0"], None)}
+    out = {}
+    counters.reset()
+    for name, (model, cfg, ref_loss, ref_ms) in cases.items():
+        t0 = time.perf_counter()
+        batch = {k: v.to(dev) for k, v in MESH_INPUTS.pop(name).items()}
+        n = next(iter(batch.values())).shape[0]
+        blog = (gnn_abstract_batch(d["n_nodes"], d["n_edges"],
+                                   d["n_triplets"], d["d_feat"], cfg.task)[1]
+                if model is dn else recsys_abstract_batch(cfg, n, mesh)[1])
+        plog = model.params_logical(cfg)
+        params = model.init_params(cfg, seed=0, device=dev)
+        opt_cfg, step = adamw_step(functools.partial(model.loss_fn, cfg=cfg,
+                                                     rules=rules))
+        state = tree_distribute(opt_init(opt_cfg, params),
+                                opt_state_logical(opt_cfg, plog), rules, mesh)
+        params = tree_distribute(params, plog, rules, mesh)
+        batch = tree_distribute(batch, blog, rules, mesh)
+        n_leaves = len(dtensor_leaves((params, state, batch)))
+        times, metrics = timed_steps(step, params, state, batch,
+                                     MESH_MODEL_STEPS)
+        loss0 = metrics[0]["loss"]
+        err = abs(loss0 - ref_loss) / abs(ref_loss)
+        if not err <= MESH_MODEL_TOL:
+            raise AssertionError(f"13f {name}: first loss {loss0} on the "
+                                 f"mesh, phase 11's plain step {ref_loss} "
+                                 f"(relative error {err:.3g}, tolerance "
+                                 f"{MESH_MODEL_TOL})")
+        wall = statistics.median(times[1:])
+        out[name] = {"rows": n, "dtensor_leaves": n_leaves,
+                     "metrics": metrics, "step_s": times,
+                     "step_ms": wall * 1e3, "ref_loss": ref_loss,
+                     "loss_rel_err": err, "ref_step_ms": ref_ms,
+                     "profile": step_profile(step, params, state, batch,
+                                             wall),
+                     "s": time.perf_counter() - t0}
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = counters.read()
+    if any(out["launches"].values()):
+        raise AssertionError(f"13f launched a kernel: {out['launches']}")
+    return out
 
 
 def start_mesh_dryrun() -> tuple:
@@ -5845,8 +5981,9 @@ def mesh_dryrun(started: tuple) -> dict:
     return cells
 
 
-def phase13(dev, rag: dict, tr: dict, counters) -> dict:
-    """13a-13d on the card's 1x1 mesh (NCCL world 1), on a quiet host."""
+def phase13(dev, rag: dict, tr: dict, p11: dict, counters) -> dict:
+    """13a-13d and 13f on the card's 1x1 mesh (NCCL world 1), on a quiet
+    host."""
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import rules_for_mesh
@@ -5877,6 +6014,10 @@ def phase13(dev, rag: dict, tr: dict, counters) -> dict:
         torch.cuda.empty_cache()
         out["13d"] = mesh_reshard(mesh, rules, tr["10a"]["checkpoint"])
         report_13d(out["13d"])
+        t0 = time.perf_counter()
+        out["13f"] = mesh_models(dev, mesh, rules, p11, counters)
+        out["13f"]["s"] = time.perf_counter() - t0
+        report_13f(out)
     finally:
         dist.destroy_process_group()
     return out
@@ -5927,6 +6068,28 @@ def report_13d(d: dict) -> None:
     log(f"[13d reshard] reshard_tree of 10a's lm100m checkpoint "
         f"({d['leaves']} leaves, {d['bytes'] / 1e9:.2f} GB) onto the "
         f"card's mesh: every leaf bit-equal, in {d['s']:.2f} s")
+
+
+def report_13f(p: dict) -> None:
+    f = p["13f"]
+    for name in MESH_MODELS:
+        r, pr = f[name], f[name]["profile"]
+        ref = (f"phase 11's step {r['ref_step_ms']:.1f} ms"
+               if r["ref_step_ms"] is not None
+               else "phase 11 steps it in micro-batches")
+        log(f"[13f mesh] {name} on the card's {p['mesh']} mesh (NCCL world "
+            f"{p['world']}), {r['dtensor_leaves']} DTensor leaves, "
+            f"{r['rows']} rows, shard-local path: first loss "
+            f"{r['metrics'][0]['loss']:.6f}, phase 11's plain step "
+            f"{r['ref_loss']:.6f} (relative error {r['loss_rel_err']:.2e}, "
+            f"tolerance {MESH_MODEL_TOL}); losses "
+            f"{[round(m['loss'], 5) for m in r['metrics']]}; step "
+            f"{r['step_ms']:.1f} ms ({[round(x, 4) for x in r['step_s']]} s)"
+            f", {ref}; device busy {pr['device_busy_ms']:.1f} of "
+            f"{pr['wall_ms']:.1f} ms wall, idle {pr['device_idle_share']:.3f}"
+            f", {pr['launches']:.0f} launches; {r['s']:.1f} s")
+    log(f"[13f mesh] the eight kernels' launches: {f['launches']}; "
+        f"{f['s']:.1f} s")
 
 
 def report_mesh_dryrun(cells: dict) -> None:
@@ -6214,6 +6377,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counters.reset()
     t0 = time.perf_counter()
+    early = start_early_cell()
     tr = train_path(dev)
     tr["phase_s"] = time.perf_counter() - t0
     tr["launches"] = counters.read()
@@ -6249,16 +6413,16 @@ def main() -> int:
     p12b = distributed_path(dev)
     launches_12b = counters.read()
 
-    # phase 13 (13a-13d) on the card's mesh while the host is quiet; then
+    # phase 13 (13a-13d, 13f) on the card's mesh while the host is quiet; then
     # 13e's 16x16 dry run beside 12c's sweep
     t13 = time.perf_counter()
-    p13 = phase13(dev, rag, tr, counters)
+    p13 = phase13(dev, rag, tr, p11, counters)
     p13["phase_s"] = time.perf_counter() - t13
     gc.collect()
     torch.cuda.empty_cache()
     counters.reset()
     mesh_run = start_mesh_dryrun()
-    t_sweep, sweep = time.perf_counter(), start_sweep()
+    t_sweep, sweep = time.perf_counter(), start_sweep(early)
     p12 = {"12a": dryrun_check(tr, p11), "12b": p12b,
            "12c": sweep_path(sweep, t_sweep)}
     p13["13e"] = mesh_dryrun(mesh_run)
@@ -6272,7 +6436,7 @@ def main() -> int:
                              f"{p12['launches']}")
     log(f"[12] phase 12 in {p12['phase_s']:.1f} s, 13e beside it; the "
         f"eight kernels' launches: {p12['launches']} (the dry runs count "
-        f"decode_attention on meta and launch nothing); phase 13a-d in "
+        f"decode_attention on meta and launch nothing); phase 13a-d, f in "
         f"{p13['phase_s']:.1f} s")
 
     # phase 14: the kernels line and the result line

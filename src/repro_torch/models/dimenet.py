@@ -24,10 +24,14 @@ Twin of ``src/repro/models/dimenet.py``:
 
 :func:`params_logical` names the parameters' logical axes, and
 ``rules`` (default None) reaches the reference's constraints: on a mesh
-the node and edge activations shard over ``nodes`` / ``edges``, and the
-geometry, the gathers by edge and triplet ids and the segment sums run on
-whole tensors (``utils.run_replicated``), their results sliced back to
-the edge layout.
+the node and edge activations shard over ``nodes`` / ``edges`` (the
+triplets with their edges), partitioned as the reference's compiler
+partitions a gather and a scatter.  The source rows (``pos``, then the
+edge vectors; ``h``; ``m``) are gathered whole once each, every rank
+indexes them for its own edges and triplets (``utils.gather_rows``), and
+each segment sum adds the rank's rows into a whole ``[E, d]`` / ``[N, d]``
+that is reduce-scattered to the ``edges`` / ``nodes`` layout
+(``utils.segment_sum``).
 
 Inputs (all fixed-shape, masked):
   x          [N, d_feat]   node features
@@ -48,9 +52,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils import (constrain, is_dtensor, logsumexp_last,
-                               merge_dims, mesh_scope, resolve_device,
-                               run_replicated, seeded_generator, take_last)
+from repro_torch.utils import (constrain, gather_rows, is_dtensor, local,
+                               logsumexp_last, merge_dims, mesh_scope,
+                               replicated, resolve_device, rows_of,
+                               seeded_generator, segment_sum, take_last, wrap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,16 +190,12 @@ def params_logical(cfg: DimeNetConfig) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return x.new_zeros((n,) + x.shape[1:]).index_add(0, seg, x)
-
-
 def _block(bp: dict, m, acc, sbf, t_in, t_out, tmask, emask, dst, n,
            rules=None):
     e = m.shape[0]
     # directional message: gather m over incoming triplet edges
-    m_kj = run_replicated(F.embedding, t_in, m)
-    m_kj = constrain(m_kj, ("edges", None), rules) @ bp["w_msg"]  # [T, d]
+    m_kj = constrain(gather_rows(m, t_in), ("edges", None), rules) \
+        @ bp["w_msg"]                                         # [T, d]
     s = sbf @ bp["w_sbf"]                                    # [T, b]
     nb, d, f = bp["w_bil"].shape
     if is_dtensor(m_kj):
@@ -204,33 +205,56 @@ def _block(bp: dict, m, acc, sbf, t_in, t_out, tmask, emask, dst, n,
         inter = (s[:, :, None] * m_kj[:, None, :]).reshape(-1, nb * d) \
             @ bp["w_bil"].reshape(nb * d, f)                 # [T, f]
     inter = inter * tmask[:, None]
-    agg = run_replicated(_segment_sum, inter, t_out, e)              # [E, d]
-    agg = constrain(agg, ("edges", None), rules)
+    agg = segment_sum(inter, t_out, e, ("edges", None), rules)  # [E, d]
     m_new = F.silu((m + agg) @ bp["w_upd1"])
     m_new = F.silu(m_new @ bp["w_upd2"]) + m                 # residual
     m_new = m_new * emask[:, None]
     m_new = constrain(m_new, ("edges", None), rules)
     # output block: edges -> nodes
     eo = F.silu(m_new @ bp["w_out_edge"]) * emask[:, None]
-    node = run_replicated(_segment_sum, eo, dst, n)                  # [N, d]
-    node = constrain(node, ("nodes", None), rules)
+    node = segment_sum(eo, dst, n, ("nodes", None), rules)   # [N, d]
     return m_new, acc + node @ bp["w_out"]
 
 
-def _geometry(pos, src, dst, t_in, t_out, cfg: DimeNetConfig):
-    """The radial basis of every edge [E, R] and the spherical basis of
-    every triplet [T, S*R]."""
+def _edge_geometry(pos, src, dst):
+    """Each edge's vector and length (``pos`` whole, the edges' ends)."""
     vec = pos[dst] - pos[src]                                # [E,3]
-    dist = torch.linalg.norm(vec + 1e-9, dim=-1)             # [E]
-    rbf = bessel_rbf(dist, cfg.n_radial, cfg.cutoff)
+    return vec, torch.linalg.norm(vec + 1e-9, dim=-1)        # [E]
+
+
+def _triplet_basis(vec, dist, t_in, t_out, cfg: DimeNetConfig):
+    """The spherical basis of triplets (k->j->i), ``vec`` / ``dist`` whole
+    over the edges -> [T, S*R]."""
     # triplet angle between edge (k->j) and (j->i)
     v_in, v_out = -vec[t_in], vec[t_out]
     cos_a = (v_in * v_out).sum(-1) / (
         torch.linalg.norm(v_in, dim=-1) * torch.linalg.norm(v_out, dim=-1)
         + 1e-9)
-    sbf = sbf_basis(dist[t_in], cos_a, cfg.n_spherical, cfg.n_radial,
-                    cfg.cutoff)                              # [T, SR]
-    return rbf, sbf
+    return sbf_basis(dist[t_in], cos_a, cfg.n_spherical, cfg.n_radial,
+                     cfg.cutoff)
+
+
+def _geometry(pos, src, dst, t_in, t_out, cfg: DimeNetConfig):
+    """The radial basis of every edge [E, R] and the spherical basis of
+    every triplet [T, S*R].  On a mesh each rank computes its own edges'
+    vectors from the positions gathered whole, and its own triplets' basis
+    from the edge vectors gathered whole (no gradient flows here)."""
+    if not is_dtensor(src):
+        vec, dist = _edge_geometry(pos, src, dst)
+        return (bessel_rbf(dist, cfg.n_radial, cfg.cutoff),
+                _triplet_basis(vec, dist, t_in, t_out, cfg))
+    mesh, e_pl, t_pl = src.device_mesh, rows_of(src), rows_of(t_in)
+    e, t = src.shape[0], t_in.shape[0]
+    with torch.no_grad():
+        vec, dist = _edge_geometry(replicated(pos).to_local(),
+                                   local(src, e_pl), local(dst, e_pl))
+        geo = replicated(wrap(torch.cat([vec, dist[:, None]], dim=-1), mesh,
+                              e_pl, (e, 4))).to_local()
+        rbf = bessel_rbf(dist, cfg.n_radial, cfg.cutoff)
+        sbf = _triplet_basis(geo[:, :3], geo[:, 3], local(t_in, t_pl),
+                             local(t_out, t_pl), cfg)
+    return (wrap(rbf, mesh, e_pl, (e,) + rbf.shape[1:]),
+            wrap(sbf, mesh, t_pl, (t,) + sbf.shape[1:]))
 
 
 def forward(params, batch, cfg: DimeNetConfig, rules=None) -> torch.Tensor:
@@ -245,26 +269,29 @@ def forward(params, batch, cfg: DimeNetConfig, rules=None) -> torch.Tensor:
         tmask = batch["tri_mask"].float()
         n = x.shape[0]
 
-        rbf, sbf = run_replicated(lambda *a: _geometry(*a, cfg), batch["pos"], src,
-                          dst, t_in, t_out)
+        rbf, sbf = _geometry(batch["pos"], src, dst, t_in, t_out, cfg)
         rbf = constrain(rbf, ("edges", None), rules)
         sbf = constrain(sbf, ("edges", None), rules)
 
-        h = x @ params["feat_proj"]                          # [N, d]
+        # the weights (KBs) are gathered whole before their products, so
+        # each rank's product needs no other collective and the weights'
+        # gradients are reduce-scattered back to their layouts
+        w = {k: replicated(params[k])
+             for k in ("feat_proj", "rbf_proj", "msg_init")}
+        h = x @ w["feat_proj"]                               # [N, d]
         h = constrain(h, ("nodes", None), rules)
-        r = rbf @ params["rbf_proj"]                         # [E, d]
-        hs, hd = run_replicated(lambda a, b, t: (F.embedding(a, t),
-                                         F.embedding(b, t)), src, dst, h)
+        r = rbf @ w["rbf_proj"]                              # [E, d]
+        hs, hd = gather_rows(h, src, dst)
         m = torch.cat([constrain(hs, ("edges", None), rules),
                        constrain(hd, ("edges", None), rules), r], dim=-1)
-        m = F.silu(m @ params["msg_init"])                   # [E, d]
+        m = F.silu(m @ w["msg_init"])                        # [E, d]
         m = m * emask[:, None]
         m = constrain(m, ("edges", None), rules)
 
         acc = x.new_zeros((n, cfg.n_targets))
         blocks = params["blocks"]
         for i in range(blocks["w_msg"].shape[0]):
-            bp = {k: blocks[k][i] for k in BLOCK_LEAVES}
+            bp = {k: replicated(blocks[k][i]) for k in BLOCK_LEAVES}
             m, acc = _block(bp, m, acc, sbf, t_in, t_out, tmask, emask, dst,
                             n, rules)
         return constrain(acc, ("nodes", None), rules)
@@ -285,7 +312,7 @@ def loss_fn(params, batch, cfg: DimeNetConfig, rules=None):
         else:
             # molecule energy: graph-pooled regression via graph_ids
             n_graphs = batch["targets"].shape[0]
-            energy = run_replicated(_segment_sum, out[:, 0] * mask,
-                            batch["graph_ids"].long(), n_graphs)
+            energy = segment_sum(out[:, 0] * mask, batch["graph_ids"].long(),
+                                 n_graphs, (None,), rules)
             loss = torch.mean((energy - batch["targets"]) ** 2)
         return loss, {"loss": loss}

@@ -135,9 +135,18 @@ def _attend_local(q: DTensor, kf: DTensor, vf: DTensor, scale, causal,
     return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B,S,Dm] @ w [Dm,H,D] -> [B,S,H,D]."""
-    return split_dim(x @ merge_dims(w, 1), 2, w.shape[1])
+def _project(x: torch.Tensor, w: torch.Tensor, rules=None) -> torch.Tensor:
+    """x [B,S,Dm] @ w [Dm,H,D] -> [B,S,H,D].  On a mesh the weight is
+    gathered over ``fsdp`` and its H*D columns split over the heads' axes
+    first (column parallel; a reduce-scatter of its gradient comes back),
+    so the product's plan is the same whatever strategy a torch release's
+    ``DTensor`` would pick for a product of shards, and no rank repeats
+    another's columns."""
+    heads = w.shape[1]
+    w = merge_dims(w, 1)
+    if rules is not None:
+        w = constrain(w, (None, "heads"), rules)
+    return split_dim(x @ w, 2, heads)
 
 
 def _heads_to(a: torch.Tensor, n: int, rules) -> torch.Tensor:
@@ -234,11 +243,11 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, *,
     # sequence parallelism: the projections take the whole sequence
     x = constrain(x, ("batch", None, "d_model"), rules)
 
-    q = apply_rope(_project(x, params["wq"]), positions, rope_theta,
+    q = apply_rope(_project(x, params["wq"], rules), positions, rope_theta,
                    rope_fraction)
-    k = apply_rope(_project(x, params["wk"]), positions, rope_theta,
+    k = apply_rope(_project(x, params["wk"], rules), positions, rope_theta,
                    rope_fraction)
-    v = _project(x, params["wv"])
+    v = _project(x, params["wv"], rules)
 
     if kv_cache is not None:
         if s != 1:
@@ -260,6 +269,10 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, *,
         out = out.to(x.dtype)[:, None]
         new_cache = (ck, cv)
     else:
+        # the K/V heads are repeated where they lie whole (``kv_heads``),
+        # then laid out by the constraint below
+        k, v = (constrain(a, ("batch", None, "kv_heads", None), rules)
+                for a in (k, v))
         kf, vf = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
         h_eff, head_ax = n_heads, None
         if rules is not None:
@@ -280,7 +293,14 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, *,
             out = _heads_to(out, n_heads, rules)
         new_cache = None
 
-    out = merge_dims(out, 2) @ merge_dims(params["wo"], 0)
+    # row parallel: the heads' H*D rows split over the heads' axes on both
+    # sides (the weight gathered over ``fsdp``), the partial sums reduced
+    # by the constraint below
+    out, wo = merge_dims(out, 2), merge_dims(params["wo"], 0)
+    if rules is not None:
+        out = constrain(out, ("batch", None, "heads"), rules)
+        wo = constrain(wo, ("heads", None), rules)
+    out = out @ wo
     return constrain(out, ("batch", "seq", "d_model"), rules), new_cache
 
 
@@ -294,8 +314,14 @@ def mlp_logical(gated: bool = True) -> dict:
 def mlp(params, x: torch.Tensor, rules=None) -> torch.Tensor:
     """Gated SiLU (``w_gate`` present) or GeLU (tanh approximation, which is
     ``jax.nn.gelu``'s default) feed-forward; on a mesh the input takes the
-    whole sequence, as in attention."""
+    whole sequence, as in attention.  Its weights are gathered over
+    ``fsdp`` and split over ``d_ff`` first (column parallel, then row
+    parallel), so the plan does not depend on the torch release."""
     x = constrain(x, ("batch", None, "d_model"), rules)
+    if rules is not None:
+        params = {k: constrain(w, ("d_ff", None) if k == "w_out"
+                               else (None, "d_ff"), rules)
+                  for k, w in params.items()}
     h = x @ params["w_in"]
     if "w_gate" in params:
         h = F.silu(x @ params["w_gate"]) * h

@@ -18,9 +18,14 @@ they are dicts keyed by position (``"0"``, ``"1"``, ...).
 :func:`params_logical` names the parameters' logical axes (the tables
 shard their rows over ``emb_vocab``, the small MLPs and attention stay
 replicated); ``rules`` (default None) reaches the reference's constraints
-and runs the forward sharded on ``DTensor`` parameters.  The lookups keep
-``F.embedding``, which has a row-sharded rule; the dot interaction's pair
-gather and the top-k run on whole tensors (``utils.run_replicated``).
+and runs the forward sharded on ``DTensor`` parameters, partitioned as the
+reference's compiler partitions it: the lookups gather each rank's own
+table rows and all-reduce the parts over the vocab axes
+(``utils.vocab_lookup``), the dot interaction and autoint's field
+attention run on each rank's batch rows (``utils.per_rows``), bert4rec's
+head scores each rank's rows against its own vocab block
+(``utils.vocab_logits``), and only the retrieval top-k, over one query's
+row, runs whole (``utils.run_replicated``).
 
 Shapes (per the assignment):
   train_batch    batch=65536          training (logloss)
@@ -35,13 +40,12 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.utils import (constrain, logsumexp_last, mesh_scope,
-                               replicated, resolve_device, run_replicated,
-                               seeded_generator, settled, stable_topk,
-                               take_last)
+from repro_torch.utils import (constrain, is_dtensor, logsumexp_last,
+                               mesh_scope, per_rows, resolve_device,
+                               seeded_generator, stable_topk, take_last,
+                               vocab_logits, vocab_lookup)
 
 # Criteo Kaggle per-field vocabulary sizes (26 categorical fields), the
 # standard DLRM benchmark tables [arXiv:1906.00091].
@@ -131,9 +135,9 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     """Single-valued categorical lookup: table [V_total, D], ids [B, F]
     per-field local ids, offsets [F] -> [B, F, D].  A gather through
     ``F.embedding``, whose backward sums each row's duplicates in parallel
-    (Zipf ids repeat the head rows across the batch).  A row-sharded
-    ``DTensor`` table's partial rows are reduced at once."""
-    return settled(F.embedding(ids + offsets[None, :], table))
+    (Zipf ids repeat the head rows across the batch); a row-sharded
+    ``DTensor`` table through ``utils.vocab_lookup``."""
+    return vocab_lookup(table, ids + offsets[None, :])
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -275,20 +279,21 @@ def _pairs(z: torch.Tensor) -> torch.Tensor:
     return z[:, iu, ju]
 
 
+def _dot_pairs(vecs: torch.Tensor) -> torch.Tensor:
+    return _pairs(torch.bmm(vecs, vecs.transpose(1, 2)))
+
+
 def _dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
     """DLRM dot interaction: [B, F, D] -> strictly-upper-tri dots
-    [B, F(F-1)/2]; on a ``DTensor`` the pair gather runs whole."""
-    return run_replicated(_pairs, torch.bmm(vecs, vecs.transpose(1, 2)))
+    [B, F(F-1)/2], on each rank's rows of a ``DTensor``."""
+    return per_rows(_dot_pairs, vecs)
 
 
 def _bert4rec(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
     table = params["table"]
     items = batch["items"]                                      # [B, S]
     b, s = items.shape
-    # the item table (MBs) is gathered whole for the lookup: it is also the
-    # output projection, and a row-sharded lookup's masked partial gradient
-    # cannot be added to that product's
-    x = F.embedding(items, replicated(table)) + params["pos_embed"][None, :s]
+    x = vocab_lookup(table, items) + params["pos_embed"][None, :s]
     x = constrain(x, ("batch", "seq", None), rules)
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     for i in range(cfg.n_blocks):
@@ -300,17 +305,21 @@ def _bert4rec(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
         x = x + h
         x = x + L.mlp(blk["mlp"], L.rmsnorm(blk["mlp_norm"], x), rules)
     x = constrain(x, ("batch", None, None), rules)
+    if is_dtensor(table):
+        # each rank's rows against its own block of the real vocab
+        return vocab_logits(x, table, cfg.total_vocab)
     logits = x @ table.T                                        # [B, S, V]
-    logits = constrain(logits, ("batch", None, "emb_vocab"), rules)
     if table.shape[0] > cfg.total_vocab:   # drop pad-row logits
         logits = logits[..., :cfg.total_vocab]
     return logits
 
 
-def _autoint(params, x: torch.Tensor) -> torch.Tensor:
+def _autoint(x: torch.Tensor, attn: dict, out: torch.Tensor) -> torch.Tensor:
+    """AutoInt's field attention layers and logit over ``x [B, F, D]`` ->
+    ``[B]``; no step mixes two rows."""
     b, f, _ = x.shape
-    for i in range(len(params["attn"])):
-        lp = params["attn"][str(i)]
+    for i in range(len(attn)):
+        lp = attn[str(i)]
         h, da = lp["wq"].shape[1], lp["wq"].shape[2]
         q, k, v = ((x @ lp[w].flatten(1)).view(b, f, h, da)
                    for w in ("wq", "wk", "wv"))
@@ -321,7 +330,7 @@ def _autoint(params, x: torch.Tensor) -> torch.Tensor:
         probs = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhfg,bghk->bfhk", probs, v).reshape(b, f, h * da)
         x = torch.relu(o + x @ lp["wres"])
-    return x.reshape(b, -1) @ params["out"]
+    return x.reshape(b, -1) @ out
 
 
 def forward(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
@@ -342,16 +351,15 @@ def forward(params, batch, cfg: RecsysConfig, rules=None) -> torch.Tensor:
             feat = torch.cat([_dot_interaction(allv), bot], dim=-1)
             logit = _mlp_chain(params["top"], feat)[:, 0]
         elif cfg.kind == "deepfm":
-            w1 = params["w1"].unsqueeze(1)
-            first = settled(F.embedding(ids + offsets[None, :], w1))[
-                ..., 0].sum(dim=-1)
+            first = vocab_lookup(params["w1"].unsqueeze(1),
+                                 ids + offsets[None, :])[..., 0].sum(dim=-1)
             sum_v = vecs.sum(dim=1)
             fm = 0.5 * (sum_v ** 2 - (vecs ** 2).sum(dim=1)).sum(dim=-1)
             deep = _mlp_chain(params["deep"],
                               vecs.reshape(vecs.shape[0], -1))[:, 0]
             logit = first + fm + deep
         elif cfg.kind == "autoint":
-            logit = _autoint(params, vecs)
+            logit = per_rows(_autoint, vecs, params["attn"], params["out"])
         else:
             raise ValueError(cfg.kind)
         return constrain(logit, ("batch",), rules)

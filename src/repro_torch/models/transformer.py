@@ -308,7 +308,10 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
         x, aux = forward_hidden(params, tokens, cfg, compute_dtype, rules)
         x = constrain(x, ("batch", None, "d_model"), rules)
         w = params["unembed"]
-        logits = x @ (w if compute_dtype is None else w.to(compute_dtype))
+        w = w if compute_dtype is None else w.to(compute_dtype)
+        # gathered over fsdp before the product, as the layers' weights
+        w = constrain(w, (None, "vocab"), rules)
+        logits = x @ w
         return constrain(logits, ("batch", None, "vocab"), rules), aux
 
 

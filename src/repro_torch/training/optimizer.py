@@ -182,10 +182,23 @@ def _views(state_leaf: torch.Tensor, stacked: bool) -> list:
 
 
 def like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """A gradient laid out as its ``DTensor`` parameter (a partial sum is
-    reduced, a replicated one sliced), or ``g``."""
+    """A gradient laid out as its ``DTensor`` parameter (a partial sum over
+    the ranks that replicate the parameter is reduced, a replicated one
+    sliced), or ``g``.  A gradient that is partial where its parameter is
+    sharded would have each rank hold the whole extent of a sharded dim
+    (a row-sharded table's whole-table gradient): the step that made it
+    must reduce it to its shard instead (``utils.vocab_lookup``), so it
+    raises ``ValueError``."""
     if isinstance(p, DTensor) and isinstance(g, DTensor) \
             and tuple(g.placements) != tuple(p.placements):
+        whole = [i for i, (a, b) in enumerate(zip(g.placements,
+                                                  p.placements))
+                 if a.is_partial() and not b.is_replicate()]
+        if whole:
+            raise ValueError(
+                f"a gradient of shape {tuple(g.shape)} partial over mesh "
+                f"dims {whole} where its parameter is sharded "
+                f"({tuple(g.placements)} against {tuple(p.placements)})")
         return g.redistribute(p.device_mesh, p.placements)
     return g
 

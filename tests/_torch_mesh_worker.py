@@ -165,14 +165,25 @@ def decode_case(mesh) -> dict:
             "v": _np(cache["v"])}
 
 
-def recsys_case(mesh, kind: str) -> dict:
+def recsys_case(mesh, kind: str, vocab: int | None = None) -> dict:
+    """One recsys kind at the smoke size; ``vocab`` (bert4rec) replaces the
+    item count, so that the padded table's real rows split unevenly over
+    the ``model`` ranks (the last vocab block short)."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.configs.families import (recsys_abstract_batch,
                                               to_device)
     from repro_torch.configs.recsys_archs import smoke_batch, smoke_config
+    from repro_torch.data.recsys import SessionLog
     from repro_torch.models import recsys as rs
     cfg = smoke_config(get_arch(kind).config)
-    batch = to_device(smoke_batch(cfg), "cpu")
+    if vocab is None:
+        batch = to_device(smoke_batch(cfg), "cpu")
+    else:
+        cfg = dataclasses.replace(cfg, vocab_sizes=(vocab,))
+        batch = to_device(SessionLog(vocab, seed=0).sample(4, cfg.seq_len),
+                          "cpu")
     blog = recsys_abstract_batch(cfg, next(iter(batch.values())).shape[0],
                                  mesh)[1]
     opt_cfg = OptConfig(name="adamw")
@@ -245,7 +256,11 @@ CASES = {
     "moe_lm": functools.partial(lm_case, moe=True),
     "decode": decode_case,
     "dlrm": functools.partial(recsys_case, kind="dlrm-rm2"),
+    "deepfm": functools.partial(recsys_case, kind="deepfm"),
+    "autoint": functools.partial(recsys_case, kind="autoint"),
     "bert4rec": functools.partial(recsys_case, kind="bert4rec"),
+    "bert4rec_uneven": functools.partial(recsys_case, kind="bert4rec",
+                                         vocab=251),
     "dimenet": dimenet_case,
     "has_rag": has_rag_case,
     "flat": flat_case,

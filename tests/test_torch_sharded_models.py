@@ -13,8 +13,13 @@ plain tensors.
   Adafactor): loss, every gradient and the parameters after one step.
 * One decode step (the new K/V written into the rank holding the
   position, the cache gathered over its sequence): logits and cache.
-* dlrm-rm2 and bert4rec at the smoke size (row-sharded tables): the
-  forward, loss, gradients and an AdamW step; DimeNet's the same.
+* dlrm-rm2, deepfm, autoint and bert4rec at the smoke size (row-sharded
+  tables: each rank's own rows gathered, the table's gradient reduced to
+  its shard; the per-row steps on each rank's rows; bert4rec's scores on
+  each rank's vocab block, also with 251 items, whose padded table's real
+  rows split unevenly over the ranks): the forward, loss, gradients and an
+  AdamW step; DimeNet's the same (gathers and segment sums on each rank's
+  edges and triplets).
 * The has-rag step: ids, accepts exact, homology scores; and
   ``chunked_flat_search`` over a corpus sharded over ``corpus``, with
   rows planted in three ranks' blocks so that scores tie across ranks:
@@ -37,8 +42,8 @@ import _torch_mesh_worker as W
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 GROUPS = {"lm": ("dense_lm", "decode", "has_rag", "dlrm", "flat"),
-          "moe": ("moe_lm", "bert4rec"),
-          "graph": ("dimenet",)}
+          "moe": ("moe_lm", "bert4rec", "bert4rec_uneven"),
+          "graph": ("dimenet", "deepfm", "autoint")}
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 
