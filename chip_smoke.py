@@ -518,7 +518,10 @@ def device_times(fn, reps: int, warm: bool = True,
         time.sleep(PROFILE_MARGIN_S)
     out = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range (the program's spans) shows on the device
+        # as a user annotation as long as the range: not an operation
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t

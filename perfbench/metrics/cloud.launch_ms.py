@@ -1,0 +1,18 @@
+"""cloud.launch_ms: the median ``cloud.scan`` span of an untraced window
+micro-batch that has rejects (``core/dispatch.py``), in ms: the host's
+time to enqueue the cloud scan (the backend's ``search``), short of
+``cloud.wall_ms`` where the scan keeps the card ahead of the host."""
+import statistics
+from pathlib import Path
+
+from perfbench import harness
+
+# the window's micro-batches and their spans, read alike by every reader
+_steps = harness.load_module(Path(__file__).with_name("engine.self_ms.py"),
+                             "perfbench_metric_")._steps
+
+
+def read(run):
+    walls = [by["cloud.scan"][0].ns for _, by in _steps(run)
+             if by["cloud.scan"]]
+    return statistics.median(walls) * 1e-6 if walls else None

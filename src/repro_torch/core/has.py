@@ -349,10 +349,15 @@ def _cache_update_rows(cfg: HasConfig, state: HasState, q_emb, full_ids,
                        full_vecs) -> None:
     h = cfg.h_max
     dc = state.doc_ids.shape[0]
+    dev = state.doc_ids.device
     slot = (state.q_ptr % h).long()
     state.query_emb[slot] = q_emb
     state.query_doc_ids[slot] = full_ids
     state.query_valid[slot] = True
+    # indexing by the device scalar ``slot`` reads it to the host: a sync
+    # in each of the three writes, and one more for the ``True`` written
+    # (counted once a block: a count costs about 1 us of host)
+    dispatch.count_syncs(dev, 4)
 
     # doc dedup: only insert ids not already in the store AND not duplicated
     # earlier in this full result (first occurrence wins)
@@ -367,6 +372,7 @@ def _cache_update_rows(cfg: HasConfig, state: HasState, q_emb, full_ids,
     # here they are masked out (an out-of-range index would fault)
     state.doc_ids[pos[new]] = full_ids[new]
     state.doc_emb[pos[new]] = full_vecs[new]
+    dispatch.count_syncs(dev, 4)            # two boolean masks a write
     state.d_ptr += new.sum(dtype=torch.int32)
     state.q_ptr += 1
 
@@ -455,6 +461,7 @@ def cache_update_chunked(cfg: HasConfig, state: HasState, q_embs, full_ids,
         ids[:m] = full_ids[i0:i0 + m]
         mask[:m] = True
         ids_t = torch.as_tensor(ids, device=state.device)
+        dispatch.count_syncs(state.device)      # the upload
         if full_vecs is None:
             vecs = corpus[ids_t.clamp_min(0).long()]
         else:

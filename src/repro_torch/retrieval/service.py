@@ -655,8 +655,16 @@ class RetrievalService:
     def full_search_batch(self, q_embs, q_terms=None,
                           q_term_weights=None) -> tuple[np.ndarray, float]:
         """Coalesced search for [B, d] (terms [B, T]) -> (ids [B,k],
-        t_comp)."""
-        kw = self._term_kw(q_terms, q_term_weights)
-        _, ids = self.backend.search(as_f32(q_embs, self.device), **kw)
-        return ids.cpu().numpy().astype(np.int32), \
-            self.backend.latency(len(q_embs))
+        t_comp).  Spans: ``cloud`` around it all, ``cloud.scan`` around the
+        backend's search (the host's launches) and ``cloud.readback``
+        around the ids' copy to the host (the wait for the scan)."""
+        with dispatch.span("cloud"):
+            kw = self._term_kw(q_terms, q_term_weights)
+            q = as_f32(q_embs, self.device)
+            with dispatch.span("cloud.scan"):
+                _, ids = self.backend.search(q, **kw)
+            with dispatch.span("cloud.readback"):
+                ids = ids.cpu()
+                dispatch.count_syncs(self.device)
+            return ids.numpy().astype(np.int32), \
+                self.backend.latency(len(q_embs))

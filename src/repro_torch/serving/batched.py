@@ -17,15 +17,18 @@ to the sequential engine's as batch_size/stream_length -> 0.
 
 The engine rides the shared :class:`~repro_torch.serving.engine.ServeLoop`
 substrate: it only implements ``_step_batch``; metrics recording and rng
-threading live in the base class.  The measured speculation time is taken
-on the host clock after ``torch.cuda.synchronize``.
+threading live in the base class.  A step records the spans
+``engine.step`` (the whole step, a new micro-batch id), ``spec``
+(speculation to ``torch.cuda.synchronize``; its length is the measured
+speculation time), ``spec.readback`` (the accept bits and drafts copied to
+the host), ``ingest`` and ``engine.respond`` (the results) in
+``core/dispatch.py``; the service adds ``cloud`` and its parts.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
+from repro_torch.core import dispatch
 from repro_torch.core.has import (HasConfig, cache_update_chunked,
                                   init_has_state, init_tenant_states,
                                   speculate_batch)
@@ -70,54 +73,60 @@ class BatchedHasEngine(ServeLoop):
         synchronize(self.device)
 
     def _step_batch(self, group, rng, dataset):
-        lat_model = self.s.latency
-        bs = self.batch_size
-        embs = np.stack([q["emb"] for q in group]).astype(np.float32)
-        if len(group) < bs:                           # pad the tail batch
-            pad = np.zeros((bs - len(group), embs.shape[1]), np.float32)
-            embs = np.concatenate([embs, pad])
-        tids = None
-        if self.n_tenants > 1:
-            tags = [int(q.get("tenant", 0)) for q in group]
-            if any(not 0 <= t < self.n_tenants for t in tags):
-                raise ValueError(
-                    f"tenant tags {sorted(set(tags))} out of range for "
-                    f"n_tenants={self.n_tenants}")
-            tids = np.zeros(bs, np.int32)             # pad rows: tenant 0
-            tids[:len(group)] = tags
-        synchronize(self.device)
-        t0 = time.perf_counter()
-        out = speculate_batch(self.cfg, self.state, self.index, embs,
-                              backend=self.backend, tenant_ids=tids)
-        synchronize(self.device)
-        t_spec = (time.perf_counter() - t0) / max(len(group), 1)
-        # host copies before the ingest below mutates the state in place
-        accepts = out["accept"][:len(group)].cpu().numpy()
-        drafts = out["draft_ids"][:len(group)].cpu().numpy()
+        with dispatch.span("engine.step", step=True):
+            lat_model = self.s.latency
+            bs = self.batch_size
+            embs = np.stack([q["emb"] for q in group]).astype(np.float32)
+            if len(group) < bs:                       # pad the tail batch
+                pad = np.zeros((bs - len(group), embs.shape[1]), np.float32)
+                embs = np.concatenate([embs, pad])
+            tids = None
+            if self.n_tenants > 1:
+                tags = [int(q.get("tenant", 0)) for q in group]
+                if any(not 0 <= t < self.n_tenants for t in tags):
+                    raise ValueError(
+                        f"tenant tags {sorted(set(tags))} out of range for "
+                        f"n_tenants={self.n_tenants}")
+                tids = np.zeros(bs, np.int32)         # pad rows: tenant 0
+                tids[:len(group)] = tags
+            synchronize(self.device)
+            with dispatch.span("spec") as spec:
+                out = speculate_batch(self.cfg, self.state, self.index, embs,
+                                      backend=self.backend, tenant_ids=tids)
+                synchronize(self.device)
+            t_spec = spec.seconds / max(len(group), 1)
+            # host copies before the ingest below mutates the state in place
+            with dispatch.span("spec.readback"):
+                accepts = out["accept"][:len(group)].cpu().numpy()
+                drafts = out["draft_ids"][:len(group)].cpu().numpy()
+                dispatch.count_syncs(self.device, 2)
 
-        # compact the rejected sub-batch -> one batched full search
-        rej = np.flatnonzero(~accepts)
-        ids_full, t_full = None, 0.0
-        if len(rej):
-            ids_full, t_full = self.s.full_search_batch(embs[rej])
-            rej_tids = None if tids is None else tids[rej]
-            self.state = cache_update_chunked(
-                self.cfg, self.state, embs[rej], ids_full,
-                corpus=self.s.corpus, chunk=bs, tenant_ids=rej_tids)
-            # replica-style backends mirror the ingest onto standby logs
-            self.s.backend.on_ingest(embs[rej], ids_full, self.state,
-                                     tenant_ids=rej_tids)
+            # compact the rejected sub-batch -> one batched full search
+            rej = np.flatnonzero(~accepts)
+            ids_full, t_full = None, 0.0
+            if len(rej):
+                ids_full, t_full = self.s.full_search_batch(embs[rej])
+                rej_tids = None if tids is None else tids[rej]
+                with dispatch.span("ingest"):
+                    self.state = cache_update_chunked(
+                        self.cfg, self.state, embs[rej], ids_full,
+                        corpus=self.s.corpus, chunk=bs, tenant_ids=rej_tids)
+                    # replica-style backends mirror the ingest onto standby
+                    # logs
+                    self.s.backend.on_ingest(embs[rej], ids_full, self.state,
+                                             tenant_ids=rej_tids)
 
-        fuzzy_t = lat_model.scan_time(
-            lat_model.target_corpus * self.fuzzy_scope * 2.0)
-        results = []
-        for i in range(len(group)):
-            lat = lat_model.sample_edge() + t_spec + fuzzy_t
-            if accepts[i]:
-                ids = drafts[i]
-            else:
-                j = int(np.flatnonzero(rej == i)[0])
-                ids = ids_full[j]
-                lat += lat_model.sample_cloud() + t_full
-            results.append((ids, bool(accepts[i]), lat))
-        return results
+            with dispatch.span("engine.respond"):
+                fuzzy_t = lat_model.scan_time(
+                    lat_model.target_corpus * self.fuzzy_scope * 2.0)
+                results = []
+                for i in range(len(group)):
+                    lat = lat_model.sample_edge() + t_spec + fuzzy_t
+                    if accepts[i]:
+                        ids = drafts[i]
+                    else:
+                        j = int(np.flatnonzero(rej == i)[0])
+                        ids = ids_full[j]
+                        lat += lat_model.sample_cloud() + t_full
+                    results.append((ids, bool(accepts[i]), lat))
+            return results

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.core import dispatch
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks.
@@ -50,13 +52,23 @@ def seeded_generator(device: torch.device, seed: int):
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _count_upload(x, device) -> None:
+    """A copy of host data to a CUDA device waits for the card."""
+    if device is None or (isinstance(x, torch.Tensor)
+                          and x.device.type == "cuda"):
+        return
+    dispatch.count_syncs(torch.device(device))
+
+
 def as_f32(x, device) -> torch.Tensor:
     """``x`` as float32 on ``device`` (float64 input is narrowed)."""
+    _count_upload(x, device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def as_i32(x, device) -> torch.Tensor:
     """``x`` as int32 on ``device`` (int64 input is narrowed)."""
+    _count_upload(x, device)
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
@@ -64,6 +76,7 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        dispatch.count_syncs(device)
 
 
 def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
