@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    the granola stream's entities, attrs and embeddings, at the quickstart
    twin's size and configuration 1's), asserted equal to the reference's
    pinned digests (``repro_torch/data/digests.py``);
-3. hold each of the eight kernels against its plain PyTorch version at the
+3. hold each of the nine kernels against its plain PyTorch version at the
    main-path shapes (B=1 and B=64; the tenant path's B=32 shapes: grouped
    topk_search over 4 x 50,000 rows, ivf_scan at P=64, grouped
    homology_validate over 4 x 5000 rows with an empty tenant; the
@@ -50,12 +50,19 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    kernel and the dynamic shared memory of the redesigned ones; then the
    tables' lookup path: fresh B=512 batches through ``embedding_bag_op``
    with its count set to 0 before; the tables are freed before the world
-   is built;
+   is built; the ingest's cache_fold (three launches a call) on filled
+   rings at h_max 5000, doc_cap 50,000, k=10, d=768, every ring field equal
+   to the row loop's: B=1 with its doc rows given (``HasEngine``), B=64
+   with 0, 20, 32 and 64 rows read by id from the corpus (the benchmark's
+   micro-batch) and with 32 rows given, B=32 with 20 rows and with none
+   (the scheduler's chunk and warm-up), four tenants at B=32 (the tenant
+   path), 700 rows in slices of ``rows_per_call``; timed at B=1 and B=64
+   with 20, 32 and 64 rows beside the row loop and its bytes bound;
 4. Algorithm 1 (``FullRetrievalEngine`` on 400 queries, ``HasEngine`` on
    1500) at d=768, h_max=5000, doc_cap=50,000, 8192 IVF buckets / nprobe
    64, over 500,000 synthetic passages (100,000 entities); the launch
-   counts are set to 0 before it and read after: topk_search, ivf_scan and
-   homology_score must each be > 0; then a profiled window of 100 fresh
+   counts are set to 0 before it and read after: topk_search, ivf_scan,
+   homology_score and cache_fold must each be > 0; then a profiled window of 100 fresh
    queries, once as the port runs it and once split (the same kernels,
    with validation's argmax and gather and the cloud stage's two sorts in
    launches of their own), from one cache snapshot, and a 300-query replay with
@@ -156,7 +163,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    stacked shapes, one 4096-token sequence a step, the routing that remat
    recomputes in the backward equal to the forward's.  Each reports step
    time, tokens/s, model TFLOP/s against 989, peak memory, one profiled
-   step's busy time and idle share, and the optimizer alone.  The eight
+   step's busy time and idle share, and the optimizer alone.  The nine
    kernels' counts are set to 0 before phase 10 and must read 0 after:
    training launches none of them;
 11. the registry and the remaining model families, on a card freed of
@@ -183,10 +190,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    in the order a, d, c, b, as their host draws are ready.  Each shape
    reports its time, busy time, idle share, launches, peak memory and
    bound, and each train step the optimizer alone against its bytes
-   bound.  The eight kernels' counts are set to 0 before phase 11 and
+   bound.  The nine kernels' counts are set to 0 before phase 11 and
    must read 0 after;
 12. the dry run and the roofline (``repro_torch.launch.dryrun``,
-   ``launch/roofline.py``) and the multi-rank exact search, with the eight
+   ``launch/roofline.py``) and the multi-rank exact search, with the nine
    kernels' counts set to 0 before and read 0 after: (a) the four cells
    phases 10 and 11 measured (chatglm3-6b's 10b step, dlrm-rm2's
    train_batch, DimeNet's minibatch_lg, has-rag at 12,582,912 rows) run on
@@ -228,7 +235,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
    the mesh, through the shard-local lookups, per-row steps, gathers and
    segment sums: each first loss within MESH_MODEL_TOL of phase 11's
    plain step's, the step time beside phase 11's, the wall against the
-   device's busy time, none of the eight kernels launched; (e) the 16x16
+   device's busy time, none of the nine kernels launched; (e) the 16x16
    dry run (a ``fake`` world of 256 ranks in a CPU subprocess with its own
    time cap, beside 12c's sweep) of 12a's four cells, deepfm's and
    bert4rec's train_batch and the three full-depth LM trainings one card
@@ -302,6 +309,7 @@ TENANTS = 4                    # partitions of the tenant path (phase 7)
 GROUPED_TOPK = "B=32,N=200000 grouped"        # phase-3 keys of the shapes
 GROUPED_HOMOLOGY = "B=32,H=20000 grouped"     # the tenant path gives them
 REVAL_BATCH = 16               # the scheduler's full_batch (re-validation)
+FOLD_CORPUS = 500_000          # corpus rows of phase 3's ingest-fold cases
 REVAL_SHAPE = "B=16,H=5000 reval"
 SHARE_ROWS = 256 + 32          # max_pending_leaders + max_spec_batch
 SHARE_SHAPE = "288x288 sharing"
@@ -1678,8 +1686,151 @@ def check_embedding_bag(dev, timer) -> tuple[dict, dict]:
 # Phases 4-5: the two main paths and their plain replays
 # ---------------------------------------------------------------------------
 
+def check_cache_fold(dev, timer) -> dict:
+    """Phase 3 for the ingest's fold (``kernels/cache_fold.py``): the
+    kernel against ``cache_fold_plain`` on the card, every ring field
+    equal, at the shapes the serving paths give it on filled rings, then
+    its time at B=1 (``HasEngine``) and B=64 (the benchmark's micro-batch)
+    beside the row loop and the bytes bound."""
+    from repro_torch.core.has import (HasConfig, init_has_state,
+                                      init_tenant_states, tenant_slice)
+    from repro_torch.kernels.cache_fold import (LAUNCHES, cache_fold,
+                                                cache_fold_plain,
+                                                rows_per_call)
+    from repro_torch.kernels.cache_fold_probe import _bytes
+
+    cfg = HasConfig(k=K, tau=TAU, h_max=5000, doc_capacity=50_000,
+                    nprobe=64, n_buckets=8192, d=768)
+    g = torch.Generator(device=dev).manual_seed(33)
+    corpus = torch.randn(FOLD_CORPUS, cfg.d, device=dev, generator=g)
+    rec = {"cases": {}, "max_abs_err": 0.0}
+
+    def filled(tenants=1):
+        st = (init_has_state(cfg, device=dev) if tenants == 1 else
+              init_tenant_states(cfg, tenants, device=dev))
+        for v in ([st] if tenants == 1 else
+                  [tenant_slice(st, t) for t in range(tenants)]):
+            v.doc_ids.copy_(torch.randperm(FOLD_CORPUS, device=dev,
+                                           generator=g)[:cfg.doc_cap])
+            v.doc_emb.copy_(corpus[v.doc_ids.long()])
+            v.query_doc_ids.copy_(torch.randint(
+                0, FOLD_CORPUS, (cfg.h_max, K), device=dev, generator=g))
+            v.query_emb.normal_(generator=g)
+            v.query_valid.fill_(True)
+            v.q_ptr.fill_(3 * cfg.h_max + 17)
+            v.d_ptr.fill_(3 * cfg.doc_cap + 4321)
+        return st
+
+    def chunk(st, b, live, tenants=1):
+        """b rows, the first ``live`` unmasked; half the ids from the doc
+        ring (present), some -1, repeats within and across rows."""
+        ring = st.doc_ids.reshape(-1)
+        ids = torch.randint(0, FOLD_CORPUS, (b, K), device=dev, generator=g,
+                            dtype=torch.int32)
+        pick = torch.rand((b, K), device=dev, generator=g) < 0.5
+        ids[pick] = ring[torch.randint(0, ring.numel(), (int(pick.sum()),),
+                                       device=dev, generator=g)]
+        ids[1::7, -1] = ids[1::7, 0]
+        ids[3::11] = ids[0]
+        ids[2::13, 4] = -1
+        q = torch.randn(b, cfg.d, device=dev, generator=g)
+        mask = torch.arange(b, device=dev) < live
+        tids = None if tenants == 1 else \
+            torch.randint(0, tenants, (b,), device=dev, generator=g,
+                          dtype=torch.int32)
+        return q, ids, mask, tids
+
+    def clone(st):
+        return dataclasses.replace(st, **{
+            f.name: getattr(st, f.name).clone()
+            for f in dataclasses.fields(st)})
+
+    def case(name, b, live, tenants=1, use_corpus=True, masked=True):
+        st = filled(tenants)
+        q, ids, mask, tids = chunk(st, b, live, tenants)
+        vecs = None if use_corpus else corpus[ids.clamp_min(0).long()]
+        kern, plain = clone(st), clone(st)
+        n0 = cache_fold.launches
+        cache_fold(kern, q, ids, vecs, corpus if use_corpus else None,
+                   mask if masked else None, tids)
+        launches = cache_fold.launches - n0
+        cache_fold_plain(plain, q, ids, vecs, corpus,
+                         mask if masked else None, tids)
+        torch.cuda.synchronize()
+        for f in dataclasses.fields(st):
+            if not torch.equal(getattr(kern, f.name), getattr(plain, f.name)):
+                raise AssertionError(f"cache_fold/{name}: {f.name} differs "
+                                     f"from the row loop's")
+        want = LAUNCHES * -(-b // rows_per_call(K))
+        if launches != want:
+            raise AssertionError(f"cache_fold/{name}: {launches} launches, "
+                                 f"want {want}")
+        rec["cases"][name] = {
+            "rows": live if masked else b, "launches": launches,
+            "inserted": int((kern.d_ptr - st.d_ptr).sum()),
+            "max_abs_err": 0.0}
+        del st, kern, plain
+
+    # HasEngine's one row (its doc rows from the host)
+    case("B=1 full_vecs", 1, 1, use_corpus=False, masked=False)
+    # the micro-batch of the benchmark, the batched engine's and the
+    # scheduler's chunks (ingest_batch 32), each through the corpus
+    for live in (0, 20, 32, 64):
+        case(f"B=64, {live} rows", 64, live)
+    case("B=64, 32 rows, full_vecs", 64, 32, use_corpus=False)
+    case("B=32, 20 rows (the scheduler's chunk)", BATCH, 20)
+    case("B=32, no rows (the scheduler's warm-up)", BATCH, 0,
+         use_corpus=False)
+    case(f"B=32, 32 rows, T={TENANTS} (the tenant path)", BATCH, BATCH,
+         tenants=TENANTS)
+    case(f"B=32, 12 rows, T={TENANTS}, full_vecs", BATCH, 12,
+         tenants=TENANTS, use_corpus=False)
+    # past one walk's rows: slices of rows_per_call(K), in order
+    case("B=700, 650 rows (slices)", 700, 650)
+
+    def counted(what, call) -> float:
+        """The fold's three kernels' device time a call (profiler), each
+        launched once a call; a trace that lost records is taken again."""
+        for _ in range(PROFILE_TRIES):
+            counts = {}
+            times = device_times(call, 20, counts=counts)
+            mine = {k: v for k, v in counts.items() if "fold_" in k}
+            if len(mine) == LAUNCHES and all(v == 1 for v in mine.values()):
+                return own_kernel_us(times, ("fold_",))
+            log(f"{what}: the profiler saw {counts} launches per call; "
+                "tracing again")
+        raise AssertionError(f"{what}: launches per call {counts}")
+
+    for b, live, key in ((1, 1, "B=1"), (64, 20, "B=64"),
+                         (64, 32, "B=64, 32 rows"),
+                         (64, 64, "B=64, 64 rows")):
+        st = filled()
+        q, ids, mask, _ = chunk(st, b, live)
+        vecs = corpus[ids.clamp_min(0).long()] if b == 1 else None
+        cor = None if b == 1 else corpus
+        ref = clone(st)
+        cache_fold(ref, q, ids, vecs, cor, mask)
+        inserted = int(ref.d_ptr - st.d_ptr)
+        del ref
+        bms, by = bound(_bytes(cfg, live, inserted), 0)
+        rec[key] = {
+            "shape": f"B={b}, unmasked {live}, h_max 5000, doc_cap 50,000, "
+                     f"k={K}, d=768, {inserted} docs inserted",
+            "ms": timer(lambda: cache_fold(st, q, ids, vecs, cor, mask)),
+            "plain_ms": timer(lambda: cache_fold_plain(st, q, ids, vecs,
+                                                       corpus, mask),
+                              reps=5, warm=1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "kernel_device_us": counted(
+                f"cache_fold {key}",
+                lambda: cache_fold(st, q, ids, vecs, cor, mask))}
+        del st
+    del corpus
+    return {"cache_fold": rec}
+
+
 class Counters:
-    """The launch counts of the six kernels, by kernel name."""
+    """The launch counts of the hand-written kernels, by kernel name."""
 
     def __init__(self, table):
         self.table = table            # name -> (wrapper, count attribute)
@@ -1856,7 +2007,7 @@ def algorithm1_path(dev, world, queries, counters) -> dict:
     info["has_serve_s"] = time.perf_counter() - t0
     info["launches"] = counters.read()
     info["full"], info["has"] = full.summary(), res.summary()
-    for name in ("topk_search", "ivf_scan", "homology_score"):
+    for name in ("topk_search", "ivf_scan", "homology_score", "cache_fold"):
         if info["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     check_steps("main path", steps, info["has"])
@@ -2137,7 +2288,8 @@ def batched_path(dev, world, queries, service, index, counters) -> dict:
     check_served("tenant path", tserved, info["tenant_summary"])
     for what, got in (("batched", info["launches"]),
                       ("tenant", info["tenant_launches"])):
-        for name in ("topk_search", "ivf_scan", "homology_score"):
+        for name in ("topk_search", "ivf_scan", "homology_score",
+                     "cache_fold"):
             if got[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{what} path")
@@ -2454,7 +2606,7 @@ def scheduler_path(dev, world, queries, service, index, counters) -> dict:
     finally:
         sched_mod.intra_batch_share = share_fn
         del sched._revalidate
-    for name in ("topk_search", "ivf_scan", "homology_score"):
+    for name in ("topk_search", "ivf_scan", "homology_score", "cache_fold"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the "
                                  "scheduler path")
@@ -2784,7 +2936,7 @@ def rag_path(dev, world, service, index, counters) -> dict:
         raise AssertionError(f"decode_attention launched "
                              f"{info['launches']['decode_attention']} times "
                              f"on the RAG path, want {want}")
-    for name in ("topk_search", "ivf_scan", "homology_score"):
+    for name in ("topk_search", "ivf_scan", "homology_score", "cache_fold"):
         if info["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the RAG path")
     if res.tokens.shape != (RAG_REQUESTS, RAG_GEN + 1) or \
@@ -5549,7 +5701,7 @@ def report_phase12(p: dict) -> None:
         f"chiprun_out/dryrun.json, roofline.md")
     log(f"[12c sweep] chatglm3-6b long_500k on meta in this process: "
         f"{dec['flops_per_device'] / 1e12:.3f} TFLOP counted "
-        f"(decode_attention by its own formula), the eight kernels' "
+        f"(decode_attention by its own formula), the nine kernels' "
         f"launches after phase 12: {p['launches']}")
 
 
@@ -5855,7 +6007,7 @@ def mesh_models(dev, mesh, rules, p11: dict, counters) -> dict:
     is an identity): the first loss against phase 11's plain step on the
     same weights (seed 0) and batch within MESH_MODEL_TOL, relative;
     MESH_MODEL_STEPS timed steps beside phase 11's step, one profiled
-    (device busy against the wall).  None of the eight kernels runs."""
+    (device busy against the wall).  None of the nine kernels runs."""
     import functools
 
     from repro_torch.configs.dimenet import GNN_SHAPES, _cfg_for
@@ -6091,7 +6243,7 @@ def report_13f(p: dict) -> None:
             f", {ref}; device busy {pr['device_busy_ms']:.1f} of "
             f"{pr['wall_ms']:.1f} ms wall, idle {pr['device_idle_share']:.3f}"
             f", {pr['launches']:.0f} launches; {r['s']:.1f} s")
-    log(f"[13f mesh] the eight kernels' launches: {f['launches']}; "
+    log(f"[13f mesh] the nine kernels' launches: {f['launches']}; "
         f"{f['s']:.1f} s")
 
 
@@ -6121,6 +6273,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cache_fold import cache_fold
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels import fused_rerank_probe as fr_probe
@@ -6138,7 +6291,8 @@ def main() -> int:
         "lexical_score": (lexical_score, "launches"),
         "fused_rerank": (fused_scores, "launches"),
         "decode_attention": (decode_attention, "launches"),
-        "embedding_bag": (embedding_bag, "launches")})
+        "embedding_bag": (embedding_bag, "launches"),
+        "cache_fold": (cache_fold, "launches")})
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     # phase 1: the card
@@ -6199,6 +6353,8 @@ def main() -> int:
     kres.update(bag_res)
     torch.cuda.empty_cache()                      # the tables are gone
     check_cloud_path_shapes(dev, timer, kres)
+    kres.update(check_cache_fold(dev, timer))
+    torch.cuda.empty_cache()
     phase3_s = time.perf_counter() - t0
     log(f"tolerance vs plain: scores within {SCORE_TOL} (f32 sums in "
         f"another order), ids equal except swaps of candidates whose "
@@ -6237,6 +6393,10 @@ def main() -> int:
         kres["lexical_score"]["cases"].items() if "launches" in v)
         + "; 200 calls back to back and two streams, tickets and bitmaps 0 "
         "after; one launch a call at B=1 and 64 (profiler)")
+    log("cache_fold cases (every ring field equal to the row loop's; "
+        "launches a call): " + "; ".join(
+            f"{c} {v['launches']}" for c, v in
+            kres["cache_fold"]["cases"].items()))
     for b, ph in kres["fused_rerank"]["trace_us"].items():
         log(f"fused_rerank probe ({FUSED_KERNEL} phases, -DFUSED_RERANK_TRACE,"
             f" {b}, P={POOL}, d=768, diversify 0.98), us: " + "; ".join(
@@ -6388,7 +6548,7 @@ def main() -> int:
     if any(tr["launches"].values()):
         raise AssertionError(f"training launched a retrieval or serving "
                              f"kernel: {tr['launches']}")
-    log(f"[10 train] phase 10 in {tr['phase_s']:.1f} s; the eight "
+    log(f"[10 train] phase 10 in {tr['phase_s']:.1f} s; the nine "
         f"kernels' launches: {tr['launches']} (training runs none)")
 
     # phase 11: the registry and the remaining model families (recsys,
@@ -6404,7 +6564,7 @@ def main() -> int:
     if any(p11["launches"].values()):
         raise AssertionError(f"phase 11 launched a retrieval or serving "
                              f"kernel: {p11['launches']}")
-    log(f"[11] phase 11 in {p11['phase_s']:.1f} s; the eight kernels' "
+    log(f"[11] phase 11 in {p11['phase_s']:.1f} s; the nine kernels' "
         f"launches: {p11['launches']} (these families run none)")
 
     # phase 12: the multi-rank exact search, then the sweep on the host
@@ -6438,7 +6598,7 @@ def main() -> int:
         raise AssertionError(f"phase 12 or 13e launched a kernel: "
                              f"{p12['launches']}")
     log(f"[12] phase 12 in {p12['phase_s']:.1f} s, 13e beside it; the "
-        f"eight kernels' launches: {p12['launches']} (the dry runs count "
+        f"nine kernels' launches: {p12['launches']} (the dry runs count "
         f"decode_attention on meta and launch nothing); phase 13a-d, f in "
         f"{p13['phase_s']:.1f} s")
 
@@ -6459,7 +6619,8 @@ def main() -> int:
         "decode_attention": ("decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:21", rag),
         "embedding_bag": ("embedding_bag.cu",
-                          "src/repro/kernels/embedding_bag.py:19", bag_path)}
+                          "src/repro/kernels/embedding_bag.py:19", bag_path),
+        "cache_fold": ("cache_fold.cu", "src/repro/core/has.py:577", info)}
     main_shape = {"decode_attention": "rag", "embedding_bag": "dlrm-rm2"}
     for name in RETRIEVAL_KERNELS:
         if p9["launches"][name] <= 0:

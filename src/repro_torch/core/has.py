@@ -18,7 +18,10 @@ validation, with its best row, to ``homology_validate`` (the
 ``speculate_batched`` are the reference's legacy entries over the same
 path.  ``cache_update`` folds one full retrieval into the rings
 (Algorithm 1 line 16); ``cache_update_batched`` folds several in order,
-and ``cache_update_chunked`` pads host rows to one chunk shape first.
+and ``cache_update_chunked`` pads host rows to one chunk shape first.  All
+three upload their host rows in one copy and fold them through
+``cache_fold_op`` (``kernels/cache_fold.py``: on the card three launches
+that the host does not wait for; on the CPU the row loop).
 
 Multi-tenant partitioning: :func:`init_tenant_states` stacks T independent
 stores into one ``[T, ...]`` state (per-tenant ``q_ptr``/``d_ptr``), and
@@ -44,11 +47,12 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.core.homology import rrf_draft_weights
-from repro_torch.kernels.ops import (check_backend, homology_score_op,
-                                     homology_validate_op, ivf_scan_op,
-                                     topk_search_op)
+from repro_torch.kernels.ops import (cache_fold_op, check_backend,
+                                     homology_score_op, homology_validate_op,
+                                     ivf_scan_op, topk_search_op)
 from repro_torch.retrieval.ivf import IVFIndex, probe_buckets
-from repro_torch.utils import as_f32, as_i32, resolve_device, stable_topk
+from repro_torch.utils import (as_f32, as_i32, host_array, resolve_device,
+                               stable_topk, upload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,111 +349,115 @@ def intra_batch_share(val_ids, rejected, tau: float, pending=None,
 # Cache update on rejection (Algorithm 1 line 16)
 # ---------------------------------------------------------------------------
 
-def _cache_update_rows(cfg: HasConfig, state: HasState, q_emb, full_ids,
-                       full_vecs) -> None:
-    h = cfg.h_max
-    dc = state.doc_ids.shape[0]
-    dev = state.doc_ids.device
-    slot = (state.q_ptr % h).long()
-    state.query_emb[slot] = q_emb
-    state.query_doc_ids[slot] = full_ids
-    state.query_valid[slot] = True
-    # indexing by the device scalar ``slot`` reads it to the host: a sync
-    # in each of the three writes, and one more for the ``True`` written
-    # (counted once a block: a count costs about 1 us of host)
-    dispatch.count_syncs(dev, 4)
-
-    # doc dedup: only insert ids not already in the store AND not duplicated
-    # earlier in this full result (first occurrence wins)
-    present = (full_ids[:, None] == state.doc_ids[None, :]).any(dim=1)
-    pos_in = torch.arange(full_ids.shape[0], device=full_ids.device)
-    dup_in_batch = ((full_ids[:, None] == full_ids[None, :])
-                    & (pos_in[None, :] < pos_in[:, None])).any(dim=1)
-    new = ~present & ~dup_in_batch & (full_ids >= 0)
-    offs = torch.cumsum(new.to(torch.int32), dim=0) - 1
-    pos = ((state.d_ptr + offs) % dc).long()
-    # the reference scatters non-new rows to index Dc with mode="drop";
-    # here they are masked out (an out-of-range index would fault)
-    state.doc_ids[pos[new]] = full_ids[new]
-    state.doc_emb[pos[new]] = full_vecs[new]
-    dispatch.count_syncs(dev, 4)            # two boolean masks a write
-    state.d_ptr += new.sum(dtype=torch.int32)
-    state.q_ptr += 1
+def _check_tenants(state: HasState, tenant_ids) -> None:
+    """The reference's range check of tenant tags."""
+    n = state.q_ptr.shape[0]
+    for t in tenant_ids:
+        if not 0 <= t < n:
+            raise ValueError(f"tenant_id {t} out of range for {n} tenants")
 
 
 def _tenant(state: HasState, t) -> HasState:
     """Tenant t's views, after the reference's range check."""
     t = int(t)
-    if not 0 <= t < state.q_ptr.shape[0]:
-        raise ValueError(f"tenant_id {t} out of range for "
-                         f"{state.q_ptr.shape[0]} tenants")
+    _check_tenants(state, [t])
     return tenant_slice(state, t)
 
 
+def _fold(state: HasState, q_embs, full_ids, full_vecs, corpus, mask,
+          tenant_ids, rows: int, backend: str | None) -> None:
+    """Upload a chunk's host rows in one copy and fold them
+    (``cache_fold_op``); ``rows`` is the number of unmasked rows."""
+    dev = state.device
+    if corpus is not None and isinstance(full_ids, np.ndarray) and \
+            full_ids.size and full_ids.max() >= corpus.shape[0]:
+        raise IndexError(f"cache update: doc id {full_ids.max()} is past "
+                         f"the corpus's {corpus.shape[0]} rows")
+    q, ids, vecs, m, tids = upload(
+        dev, (q_embs, torch.float32), (full_ids, torch.int32),
+        (full_vecs, torch.float32), (mask, torch.bool),
+        (tenant_ids, torch.int32))
+    cache_fold_op(state, q, ids, vecs, corpus, m, tids, backend=backend)
+    if dev.type == "cuda" and check_backend(backend) != "torch":
+        dispatch.count("fold_rows", rows)
+
+
 def cache_update(cfg: HasConfig, state: HasState, q_emb, full_ids,
-                 full_vecs, tenant_id=None) -> HasState:
+                 full_vecs, tenant_id=None, *,
+                 backend: str | None = None) -> HasState:
     """Insert (q, D_full) into P and the new docs into C_c (FIFO, dedup).
 
     Updates ``state``'s tensors IN PLACE (where the reference donates its
     buffers and returns new ones) and returns the same ``state``.
     ``tenant_id`` (optional) targets one partition of a stacked
-    :func:`init_tenant_states` store; the others are untouched.
+    :func:`init_tenant_states` store; the others are untouched.  One row
+    of :func:`cache_update_batched`'s fold; ``backend`` is the kernel
+    switch of ``cache_fold_op`` (None: by device).
     """
     dispatch.record("cache_update")
     _check_stacked(state, tenant_id is not None, "tenant_id")
-    dev = state.device
     target = state if tenant_id is None else _tenant(state, tenant_id)
-    _cache_update_rows(cfg, target, as_f32(q_emb, dev).reshape(-1),
-                       as_i32(full_ids, dev).reshape(-1),
-                       as_f32(full_vecs, dev))
+    k, d = target.query_doc_ids.shape[-1], target.doc_emb.shape[-1]
+    _fold(target, _reshape(q_emb, 1, d), _reshape(full_ids, 1, k),
+          _reshape(full_vecs, 1, k, d), None, None, None, 1, backend)
     return state
 
 
+def _reshape(x, *shape):
+    return (x if isinstance(x, torch.Tensor) else np.asarray(x)) \
+        .reshape(shape)
+
+
 def cache_update_batched(cfg: HasConfig, state: HasState, q_embs, full_ids,
-                         full_vecs, mask=None, tenant_ids=None) -> HasState:
+                         full_vecs=None, mask=None, tenant_ids=None, *,
+                         corpus=None, backend: str | None = None) -> HasState:
     """Fold a full-retrieval batch into the cache, in place.
 
-    q_embs [B,d], full_ids [B,k], full_vecs [B,k,d]; ``mask [B]`` (optional)
-    marks real rows (masked rows leave the state untouched).  Equal to
-    folding :func:`cache_update` over the unmasked rows in order;
-    ``tenant_ids [B]`` (optional) sends each row into its tenant's
-    partition of a stacked store.
+    q_embs [B,d], full_ids [B,k], and full_vecs [B,k,d] or a device
+    ``corpus`` to read them from by id; ``mask [B]`` (optional) marks real
+    rows (masked rows leave the state untouched).  Equal to folding
+    :func:`cache_update` over the unmasked rows in order; ``tenant_ids
+    [B]`` (optional) sends each row into its tenant's partition of a
+    stacked store.  The host arrays go to the card in one copy; on CUDA
+    the fold is ``csrc/cache_fold.cu``'s three launches, which the host
+    does not wait for (``kernels/cache_fold.py``), unless ``backend`` is
+    ``"torch"``.
     """
     dispatch.record("cache_update_batched")
     _check_stacked(state, tenant_ids is not None, "tenant_ids")
     dev = state.device
-    q_embs = as_f32(q_embs, dev)
-    full_ids = as_i32(full_ids, dev)
-    full_vecs = as_f32(full_vecs, dev)
-    rows = range(q_embs.shape[0]) if mask is None else \
-        torch.as_tensor(mask, dtype=torch.bool).cpu().nonzero()[:, 0].tolist()
-    tids = None if tenant_ids is None else \
-        torch.as_tensor(tenant_ids).cpu().tolist()
-    for i in rows:
-        target = state if tids is None else _tenant(state, tids[i])
-        _cache_update_rows(cfg, target, q_embs[i], full_ids[i], full_vecs[i])
+    if mask is not None:
+        mask = host_array(mask, dev).astype(bool)
+    rows = np.arange(len(q_embs)) if mask is None else np.flatnonzero(mask)
+    if tenant_ids is not None:
+        tenant_ids = host_array(tenant_ids, dev).astype(np.int32)
+        _check_tenants(state, tenant_ids[rows].tolist())
+    _fold(state, q_embs, full_ids, full_vecs, corpus, mask, tenant_ids,
+          len(rows), backend)
     return state
 
 
 def cache_update_chunked(cfg: HasConfig, state: HasState, q_embs, full_ids,
                          full_vecs=None, *, corpus=None, chunk: int,
-                         tenant_ids=None) -> HasState:
+                         tenant_ids=None,
+                         backend: str | None = None) -> HasState:
     """Fold N host-side update rows through :func:`cache_update_batched`.
 
     Rows go in chunks of ``chunk``, and EVERY chunk, the last partial one
     too, is zero-padded to ``[chunk, ...]`` with masked rows (the
     reference's one-shape contract, which the serving layers rely on).
     ``q_embs [N, d]`` and ``full_ids [N, k]`` are host arrays; pass either
-    ``full_vecs [N, k, d]`` or a device ``corpus`` to gather them from by
-    id (pad rows gather row 0 and are masked off).  ``tenant_ids [N]``
-    (optional) sends each row into its tenant's partition; pad rows carry
-    tenant 0.
+    ``full_vecs [N, k, d]`` or a device ``corpus`` that the fold reads
+    them from by id.  ``tenant_ids [N]`` (optional) sends each row into
+    its tenant's partition; pad rows carry tenant 0.  ``backend`` goes
+    to ``cache_fold_op``.
     """
     q_embs = np.asarray(q_embs, np.float32)
     full_ids = np.asarray(full_ids, np.int32)
     n, k, d = len(q_embs), full_ids.shape[1], q_embs.shape[1]
     if full_vecs is not None:
         full_vecs = np.asarray(full_vecs, np.float32)
+        corpus = None
     if tenant_ids is not None:
         tenant_ids = np.asarray(tenant_ids, np.int32)
     for i0 in range(0, n, chunk):
@@ -460,19 +468,17 @@ def cache_update_chunked(cfg: HasConfig, state: HasState, q_embs, full_ids,
         embs[:m] = q_embs[i0:i0 + m]
         ids[:m] = full_ids[i0:i0 + m]
         mask[:m] = True
-        ids_t = torch.as_tensor(ids, device=state.device)
-        dispatch.count_syncs(state.device)      # the upload
-        if full_vecs is None:
-            vecs = corpus[ids_t.clamp_min(0).long()]
-        else:
+        vecs = None
+        if full_vecs is not None:
             vecs = np.zeros((chunk, k, d), np.float32)
             vecs[:m] = full_vecs[i0:i0 + m]
         tids = None
         if tenant_ids is not None:
             tids = np.zeros((chunk,), np.int32)
             tids[:m] = tenant_ids[i0:i0 + m]
-        state = cache_update_batched(cfg, state, embs, ids_t, vecs, mask,
-                                     tenant_ids=tids)
+        state = cache_update_batched(cfg, state, embs, ids, vecs, mask,
+                                     tenant_ids=tids, corpus=corpus,
+                                     backend=backend)
     return state
 
 

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 KERNELS = ("topk_search", "ivf_scan", "homology_score", "lexical_score",
-           "fused_rerank", "decode_attention", "embedding_bag")
+           "fused_rerank", "decode_attention", "embedding_bag", "cache_fold")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,6 +65,9 @@ SIGNATURES = {
     },
     "embedding_bag": {
         "has_embedding_bag": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
+    },
+    "cache_fold": {
+        "has_cache_fold": [_P] * 16 + [_I] * 9 + [_P],
     },
 }
 

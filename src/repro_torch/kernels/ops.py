@@ -11,6 +11,7 @@ The port's twin of the reference's ``backend="pallas" | "xla"``:
 """
 from __future__ import annotations
 
+from repro_torch.kernels.cache_fold import cache_fold, cache_fold_plain
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.embedding_bag import (embedding_bag,
@@ -95,3 +96,9 @@ def embedding_bag_op(table, ids, weights=None, mode: str = "sum",
     fn = (embedding_bag_plain if check_backend(backend) == "torch"
           else embedding_bag)
     return fn(table, ids, weights, mode)
+
+
+def cache_fold_op(state, q_embs, full_ids, full_vecs=None, corpus=None,
+                  mask=None, tenant_ids=None, backend: str | None = None):
+    fn = cache_fold_plain if check_backend(backend) == "torch" else cache_fold
+    return fn(state, q_embs, full_ids, full_vecs, corpus, mask, tenant_ids)

@@ -110,7 +110,8 @@ class BatchedHasEngine(ServeLoop):
                 with dispatch.span("ingest"):
                     self.state = cache_update_chunked(
                         self.cfg, self.state, embs[rej], ids_full,
-                        corpus=self.s.corpus, chunk=bs, tenant_ids=rej_tids)
+                        corpus=self.s.corpus, chunk=bs, tenant_ids=rej_tids,
+                        backend=self.backend)
                     # replica-style backends mirror the ingest onto standby
                     # logs
                     self.s.backend.on_ingest(embs[rej], ids_full, self.state,

@@ -228,7 +228,8 @@ class HasEngine(ServeLoop):
     prebuilt fuzzy-channel index, so several engines can share one build;
     without it the engine builds its own from the service's corpus.
     ``backend`` is the kernel switch of
-    :func:`~repro_torch.core.has.speculate_batch` (None: by device).
+    :func:`~repro_torch.core.has.speculate_batch` and of the ingest's
+    :func:`~repro_torch.core.has.cache_update` (None: by device).
     """
 
     def __init__(self, service: RetrievalService, cfg: HasConfig | None = None,
@@ -291,7 +292,8 @@ class HasEngine(ServeLoop):
         multi = self.n_tenants > 1
         t0 = time.perf_counter()
         cache_update(self.cfg, self.state, q, ids, vecs,
-                     tenant_id=tenant if multi else None)
+                     tenant_id=tenant if multi else None,
+                     backend=self.backend)
         synchronize(self.device)
         t = time.perf_counter() - t0
         self.s.backend.on_ingest(

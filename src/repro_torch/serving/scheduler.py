@@ -763,7 +763,8 @@ class ContinuousBatchingScheduler:
             np.zeros((sc.ingest_batch, k, d), np.float32),
             np.zeros((sc.ingest_batch,), bool),
             tenant_ids=(None if self.n_tenants == 1
-                        else np.zeros((sc.ingest_batch,), np.int32)))
+                        else np.zeros((sc.ingest_batch,), np.int32)),
+            backend=sc.backend)
         service.backend.search(torch.zeros((sc.full_batch, d),
                                            device=self.device))
         self._revalidate(np.full((sc.full_batch, k), -1, np.int32),
@@ -865,7 +866,7 @@ class ContinuousBatchingScheduler:
         self.state = cache_update_chunked(
             self.cfg, self.state, q_embs, full_ids,
             corpus=self.s.corpus, chunk=self.sched.ingest_batch,
-            tenant_ids=tids)
+            tenant_ids=tids, backend=self.sched.backend)
         fault = self._inj.delta_fault() if self._inj is not None else None
         self.s.backend.on_ingest(q_embs, full_ids, self.state,
                                  tenant_ids=tids, ingest_key=ingest_key)

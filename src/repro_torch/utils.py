@@ -22,6 +22,7 @@ import contextlib
 import math
 from collections.abc import Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -70,6 +71,57 @@ def as_i32(x, device) -> torch.Tensor:
     """``x`` as int32 on ``device`` (int64 input is narrowed)."""
     _count_upload(x, device)
     return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+_NP = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def upload(device, *items) -> list:
+    """Each ``(x, dtype)`` of ``items`` as a ``dtype`` tensor on ``device``
+    (``None`` stays ``None``), the host arrays in ONE copy.
+
+    A tensor already on an accelerator is cast in place of a copy.  On a
+    CUDA device the host arrays are laid end to end in one buffer, each at
+    a 16-byte boundary, and copied over once: one host sync where a copy
+    each would wait once each.  On the CPU they become tensors, views of
+    the arrays where the dtype allows.
+    """
+    dev = torch.device(device)
+    out, host = [None] * len(items), []
+    for i, (x, dt) in enumerate(items):
+        if x is None:
+            continue
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            out[i] = x.to(dev, dt)
+            continue
+        a = np.ascontiguousarray(x, dtype=_NP[dt])
+        if dev.type == "cpu":
+            out[i] = torch.from_numpy(a)
+        else:
+            host.append((i, a))
+    if host:
+        offs, total = [], 0
+        for _, a in host:
+            offs.append(total)
+            total += -(-a.nbytes // 16) * 16
+        buf = np.empty(total, np.uint8)
+        for (_, a), o in zip(host, offs):
+            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dbuf = torch.from_numpy(buf).to(dev)
+        dispatch.count_syncs(dev)
+        for (i, a), o in zip(host, offs):
+            out[i] = dbuf[o:o + a.nbytes].view(items[i][1]).view(a.shape)
+    return out
+
+
+def host_array(x, device: torch.device) -> np.ndarray:
+    """``x`` as a numpy array; reading a CUDA tensor back waits for the
+    card (one ``host_syncs``)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cuda":
+            dispatch.count_syncs(device)
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def synchronize(device: torch.device) -> None:

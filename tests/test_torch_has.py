@@ -19,6 +19,7 @@ from repro_torch import convert
 from repro_torch.core import dispatch
 from repro_torch.core import has as pt_has
 from repro_torch.core import homology as pt_hom
+from repro_torch.kernels.ops import cache_fold_op
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 OUT_KEYS = ("accept", "homology", "matched_slot", "val_ids", "draft_ids",
@@ -207,3 +208,43 @@ def test_cache_update_batched_matches_reference():
     _assert_state_equal(rstate, pstate, "batched")
     assert pt_has.cache_memory_bytes(pcfg) == \
         ref_has.cache_memory_bytes(rcfg)
+
+
+# batches the fold's kernel must walk right: an id evicted and re-inserted
+# within one batch (1 and 2 are evicted by rows 2-3 and come back; 2 is
+# present at row 3's start though row 3 evicts it), more inserts than the
+# doc ring holds, more rows than the query ring holds
+HARD_BATCHES = {
+    "evict_and_reinsert": (dict(k=3, h_max=4, doc_capacity=6, d=8),
+                           [[1, 2, 3], [4, 5, 6], [7, -1, 7], [1, 2, 8],
+                            [2, 3, 1]]),
+    "over_doc_cap": (dict(k=4, h_max=8, doc_capacity=8, d=8),
+                     np.arange(28).reshape(7, 4)),
+    "over_h_max": (dict(k=4, h_max=3, doc_capacity=40, d=8),
+                   np.random.default_rng(5).integers(-1, 25, (10, 4))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HARD_BATCHES))
+def test_cache_fold_plain_matches_reference_on_hard_batches(name):
+    """``cache_fold_op(backend="torch")``, the row loop that the fold's
+    kernel is held to, against the reference's batched fold."""
+    cfg_kw, ids = HARD_BATCHES[name]
+    rcfg, pcfg = _cfgs(cfg_kw)
+    ids = np.asarray(ids, np.int32)
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(len(ids), 8)).astype(np.float32)
+    vecs = rng.normal(size=(*ids.shape, 8)).astype(np.float32)
+    mask = np.ones(len(ids), bool)
+    rstate = ref_has.cache_update_batched(
+        rcfg, ref_has.init_has_state(rcfg), jnp.asarray(q),
+        jnp.asarray(ids), jnp.asarray(vecs), jnp.asarray(mask))
+    pstate = pt_has.init_has_state(pcfg, device="cpu")
+    cache_fold_op(pstate, *map(torch.from_numpy, (q, ids, vecs)),
+                  mask=torch.from_numpy(mask), backend="torch")
+    _assert_state_equal(rstate, pstate, name)
+    if name == "evict_and_reinsert":
+        assert pstate.doc_ids.tolist() == [7, 1, 8, 2, 3, 6]
+        assert int(pstate.d_ptr) == 11
+    assert int(pstate.d_ptr) > pcfg.doc_cap or int(pstate.q_ptr) > \
+        pcfg.h_max

@@ -273,6 +273,8 @@ def test_host_syncs_match_the_sync_debug_warnings():
     assert counted_here == in_spans
     assert calls["n"] == 2
     assert len(synced) + calls["n"] == counted_here, where
-    # the ingest: two uploads, and eight syncs a folded row
+    # the ingest: one upload of the chunk, and the fold's launches, which
+    # the host does not wait for
     (ingest,) = [s for s in _step_spans(step) if s.name == "ingest"]
-    assert ingest.counts["host_syncs"] == 2 + 8 * rejects
+    assert ingest.counts["host_syncs"] == 1
+    assert ingest.counts["fold_rows"] == rejects
